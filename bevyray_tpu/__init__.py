@@ -1,8 +1,8 @@
-"""bevyray_tpu — a TPU-native hybrid raster/path-traced rendering framework.
+"""bevyray_tpu — a hybrid raster/path-traced rendering framework in JAX/XLA.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of GrandmasterB42/bevyray
-(a Bevy Rust+WGSL "Ray Tracing in One Weekend" post-process renderer). See SURVEY.md
-for the reference's structure and BASELINE.md for performance targets.
+A ground-up JAX rebuild of the capabilities of GrandmasterB42/bevyray (a Bevy
+Rust+WGSL "Ray Tracing in One Weekend" post-process renderer). See SURVEY.md for the
+reference's structure and PERF.md for how its speed is measured.
 
 Public surface (mirrors the reference's, src/raytracing/mod.rs:86-106):
 

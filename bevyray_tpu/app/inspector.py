@@ -1,8 +1,8 @@
 """Scene inspection and picking — headless analogs of the reference's editor glue.
 
 The reference ships an egui world inspector, mouse picking, and transform gizmos
-(main.rs:34-45,243-271 — SURVEY.md C14). On a headless TPU box the equivalents are
-programmatic:
+(main.rs:34-45,243-271 — SURVEY.md C14). On a headless accelerator box the
+equivalents are programmatic:
 
 - :func:`describe` — the inspector: a table of every entity and its components;
 - :func:`pick` — mouse picking: pixel → entity id via an analytic ray cast against

@@ -8,10 +8,10 @@ Two layers:
 
 2. A **counter-based (stateless) stream** built from the same PCG mix. The reference
    threads one mutable ``rng_state`` through a pixel's whole trace, which serializes
-   draws; on TPU every lane must know its random numbers without sequencing, so each
-   draw is ``hash(stream, draw_index)``. The engine assigns every (pixel, sample,
-   bounce) a fixed *slot budget* so the NumPy oracle and the JAX/Pallas renderers
-   consume identical uniforms and produce bit-comparable images.
+   draws; in a batched wavefront every lane must know its random numbers without
+   sequencing, so each draw is ``hash(stream, draw_index)``. The engine assigns
+   every (pixel, sample, bounce) a fixed *slot budget* so the NumPy oracle and the
+   JAX renderer consume identical uniforms and produce bit-comparable images.
 
 Unit-ball sampling: the reference rejection-samples (``random.wgsl:17-26``, an
 unbounded loop). That is hostile to SIMD, so we draw an exactly-equal distribution
@@ -119,9 +119,8 @@ def unit_ball_from_uniforms(u1, u2, u3, u4, u5) -> Vec3:
     two_pi = np.float32(2.0 * PI)
     g = Vec3(r1 * jnp.cos(two_pi * u2), r1 * jnp.sin(two_pi * u2), r3 * jnp.cos(two_pi * u4))
     inv_len = 1.0 / jnp.maximum(g.length(), 1e-20)
-    # cbrt for u >= 0 via exp(log(u)/3): jnp.cbrt has no Mosaic (Pallas TPU)
-    # lowering, and using the same formula in both the XLA and Pallas renderers
-    # keeps them bit-comparable.
+    # cbrt for u >= 0 via exp(log(u)/3), the same formula as the NumPy twin
+    # below, which keeps the renderer and the oracle comparable.
     radius = jnp.exp(jnp.log(jnp.maximum(u5, 1e-30)) * np.float32(1.0 / 3.0))
     return g.scale(inv_len * radius)
 

@@ -18,7 +18,9 @@ import numpy as np
 
 from .vec import Vec3
 
-LANE = 128  # TPU lane width; all scene tables are padded to a multiple of this.
+# All scene tables are padded to a multiple of this many entries, so that a scene
+# that grows by a few primitives keeps its shapes and its compiled programs.
+LANE = 128
 
 
 class Spheres(NamedTuple):
@@ -179,31 +181,6 @@ class RenderConfig:
     intersect_backend: str = "auto"  # "auto" | "brute" | "bvh"
     defocus: bool = False        # thin-lens blur (uses cam.aperture/focus_distance)
     diffuse_sampling: str = "reference"  # "reference" | "cosine"
-    # Megakernel sphere walk: "grouped" = tile-unanimous group culling over the
-    # full table; "candidates" = per-lane group bitmasks + one-hot MXU group
-    # gathers (sublinear per ray, value-identical); "auto" picks per scene size.
-    pallas_intersect: str = "auto"   # "auto" | "grouped" | "candidates"
-    # Megakernel bounce-0 strategy: "split" = trace every sample's primary
-    # segment in a coherent phase against host-built per-block shortlists
-    # (kernels/pallas/primary.py), then run bounces ≥ 1 persistently from
-    # stored states; "off" = single persistent loop. "auto" = split whenever
-    # supported (spp ≤ 32). Value-identical either way.
-    pallas_primary: str = "auto"     # "auto" | "split" | "off"
-    # Sphere-test discriminant handling in the megakernel walks: True drops
-    # the explicit disc ≥ 0 test and lets sqrt(disc < 0) = NaN fail both
-    # accept compares (IEEE: NaN compares false) — 3 fewer vector ops per
-    # sphere test, bit-identical accept set and image.
-    pallas_fast_disc: bool = True
-    # Candidate-walk group size in spheres (multiple of 8); 0 = auto — the
-    # smallest multiple of CAND_UNIT that keeps the per-lane group count
-    # within the two-word (62-group) bitmask.
-    pallas_cand_size: int = 0
-    # Sphere-table ordering for the megakernel's culling groups: "kd" =
-    # host-side equal-size spatially-tight clusters aligned to the candidate
-    # grid (kernels/pallas/grouping.py — cuts slab-entered groups ~2x on
-    # dense scenes, measured); "morton" = the round-1..3 in-jit morton sort.
-    # Pure permutation — hit results are value-identical either way.
-    pallas_grouping: str = "kd"
     # Max prims per BVH leaf for the traversal backend (obvhs multi-prim
     # leaves, raytrace.wgsl:311 MAX_MODELS_PER_NODE). Shapes the compiled
     # leaf-test loop; the scene's BVH must be built with the SAME value
@@ -231,15 +208,8 @@ class RenderConfig:
         if self.bvh_leaf_size < 1:
             raise ValueError(f"bvh_leaf_size {self.bvh_leaf_size} must be "
                              ">= 1")
-        if self.pallas_cand_size % 8 or self.pallas_cand_size < 0:
-            raise ValueError(f"pallas_cand_size {self.pallas_cand_size} must "
-                             "be a non-negative multiple of 8 (0 = auto)")
         for field, allowed in (("intersect_backend", ("auto", "brute", "bvh")),
-                               ("diffuse_sampling", ("reference", "cosine")),
-                               ("pallas_intersect",
-                                ("auto", "grouped", "candidates")),
-                               ("pallas_primary", ("auto", "split", "off")),
-                               ("pallas_grouping", ("kd", "morton"))):
+                               ("diffuse_sampling", ("reference", "cosine"))):
             v = getattr(self, field)
             if v not in allowed:
                 raise ValueError(f"{field}={v!r} must be one of {allowed}")

@@ -1,10 +1,10 @@
 """Structure-of-arrays 3-vector math.
 
-TPU-first design note: the reference stores rays/normals as ``vec3<f32>`` values in
-per-thread registers (``raytrace.wgsl:125-128``). On TPU a trailing axis of size 3 is
-hostile to the (8, 128) vector-register tiling — it wastes 125/128 lanes. We therefore
-keep each component as its own full array (SoA), so every vector op is a plain
-elementwise op over well-tiled arrays. ``Vec3`` is a NamedTuple and thus a JAX pytree:
+Design note: the reference stores rays/normals as ``vec3<f32>`` values in
+per-thread registers (``raytrace.wgsl:125-128``). A batched wavefront with a
+trailing axis of size 3 would stride every component access; we therefore keep each
+component as its own full array (SoA), so every vector op is a plain elementwise op
+over contiguous arrays. ``Vec3`` is a NamedTuple and thus a JAX pytree:
 it can flow through ``jit``/``scan``/``vmap`` untouched.
 """
 

@@ -1,21 +1,19 @@
 """Adaptive sampling — variance-guided per-pixel sample allocation (extension
 beyond the reference, which traces a fixed spp for every pixel).
 
-TPU-native by construction: the megakernel's persistent sampling loop already
-lets every lane stop independently, so adaptive sampling is just a per-lane
-sample TARGET map fed to the kernel (``render_tiles(spp_map=...)``) — no
-compaction, no host round-trips inside a pass. The controller is classic
-progressive-refinement: a warmup pass samples every pixel, then each
-subsequent pass re-samples only pixels whose estimate is still noisy
-(relative inter-pass disagreement above ``tolerance``), so converged regions
-(sky, flat diffuse) stop consuming samples while glass edges and noise-prone
-geometry keep refining.
+Each pass hands the XLA step a per-pixel sample TARGET (``spp_map`` of
+``film.accumulate_impl``): a lane whose sample index is at or past its pixel's
+target starts dead, traces nothing and adds nothing. No compaction and no host
+round-trips inside a pass. The controller is classic progressive refinement:
+a warmup pass samples every pixel, then each subsequent pass re-samples only
+pixels whose estimate is still noisy (relative inter-pass disagreement above
+``tolerance``), so converged regions (sky, flat diffuse) stop consuming
+samples while glass edges and noise-prone geometry keep refining.
 
 Estimates stay unbiased: per-pixel sums divide by the ACTUAL per-pixel sample
-counts, and with ``exact_rng`` the draw streams remain keyed by (pixel,
-absolute sample index), so a pixel's k-th sample is identical whether it was
-traced adaptively or uniformly (the TPU hardware-PRNG path stays fresh per
-pass — statistically equivalent, not draw-identical).
+counts, and the draw streams are keyed by (pixel, absolute sample index), so a
+pixel's k-th sample is identical whether it was traced adaptively or
+uniformly.
 """
 
 from __future__ import annotations
@@ -29,6 +27,7 @@ import numpy as np
 
 from ..core.types import CameraState, RenderConfig, SceneBuffers
 from ..core.vec import Vec3
+from .film import accumulate_impl, new_film
 from .renderer import FrameResult
 
 
@@ -48,10 +47,9 @@ def _new_film(n: int) -> AdaptiveFilm:
                         rays_traced=jnp.float32(0.0))
 
 
-def _adaptive_pass(film: AdaptiveFilm, pscene, cam: CameraState,
+def _adaptive_pass(film: AdaptiveFilm, scene: SceneBuffers, cam: CameraState,
                    config: RenderConfig, frame_seed, sample_offset, reprobe,
-                   tolerance: float, sl=None, slmeta=None, slattr=None,
-                   has_emissive: bool = True):
+                   tolerance: float):
     """One pass: pixels with err >= tolerance trace config.samples_per_pixel
     fresh samples; the rest trace none. Returns the updated film.
 
@@ -59,25 +57,17 @@ def _adaptive_pass(film: AdaptiveFilm, pscene, cam: CameraState,
     new disagreement into ``err`` — the periodic escape hatch that lets a noisy
     pixel whose pass once agreed by chance resume sampling (a stopped pixel's
     err is otherwise never re-evaluated)."""
-    from ..kernels.pallas.megakernel import (render_tiles, shuffle_blocks,
-                                             unshuffle_blocks)
-
     spp = config.samples_per_pixel
     want = (film.err >= tolerance) | reprobe
-    spp_map = shuffle_blocks(jnp.where(want, spp, 0).astype(jnp.int32),
-                             config, fill=0)
-    r, g, b, depth, segs = render_tiles(
-        pscene, cam, config, frame_seed, sample_offset=sample_offset,
-        normalize=False, sl=sl, slmeta=slmeta, slattr=slattr,
-        spp_map=spp_map, has_emissive=has_emissive)
-    r, g, b, depth = (unshuffle_blocks(x, config) for x in (r, g, b, depth))
-
-    took = want.astype(jnp.float32) * spp
+    pass_ = accumulate_impl(new_film(config), scene, cam, config, frame_seed,
+                            sample_offset,
+                            spp_map=jnp.where(want, spp, 0).astype(jnp.int32))
+    took = pass_.n_samples
     # Inter-pass disagreement: |new pass mean − running mean| relative to the
     # running mean's luminance (plus a floor so black pixels converge).
     old_n = jnp.maximum(film.n_samples, 1.0)
     old_mean = film.color_sum.scale(1.0 / old_n)
-    new_mean = Vec3(r, g, b).scale(1.0 / jnp.maximum(took, 1.0))
+    new_mean = pass_.color_sum.scale(1.0 / jnp.maximum(took, 1.0))
     lum = (old_mean.x + old_mean.y + old_mean.z) * (1.0 / 3.0)
     delta = (jnp.abs(new_mean.x - old_mean.x) + jnp.abs(new_mean.y - old_mean.y)
              + jnp.abs(new_mean.z - old_mean.z)) * (1.0 / 3.0)
@@ -93,20 +83,17 @@ def _adaptive_pass(film: AdaptiveFilm, pscene, cam: CameraState,
     err = jnp.where(~want, film.err, err)
 
     return AdaptiveFilm(
-        color_sum=film.color_sum + Vec3(r, g, b),
-        depth_sum=film.depth_sum + depth,
+        color_sum=film.color_sum + pass_.color_sum,
+        depth_sum=film.depth_sum + pass_.depth_sum,
         n_samples=film.n_samples + took,
         err=err,
-        rays_traced=film.rays_traced + segs)
+        rays_traced=film.rays_traced + pass_.rays_traced)
 
 
 @functools.lru_cache(maxsize=16)
-def _jitted_pass(config: RenderConfig, tolerance: float,
-                 has_emissive: bool = True):
-    # has_emissive is static (parked-state layout — megakernel._st_layout).
+def _jitted_pass(config: RenderConfig, tolerance: float):
     return jax.jit(functools.partial(_adaptive_pass, config=config,
-                                     tolerance=tolerance,
-                                     has_emissive=has_emissive),
+                                     tolerance=tolerance),
                    donate_argnames=("film",))
 
 
@@ -136,8 +123,6 @@ class AdaptiveRenderer:
         self._fn = _jitted_pass(config, self.tolerance)
         self._sample_offset = 0
         self._pass_count = 0
-        self._pscene_cache = None
-        self._sl_cache = None
         self._last_cam_key = None
 
     def reset(self) -> None:
@@ -145,46 +130,19 @@ class AdaptiveRenderer:
         self._sample_offset = 0
         self._pass_count = 0
 
-    def _prepare(self, scene: SceneBuffers):
-        from ..kernels.pallas.megakernel import (jitted_prepare,
-                                                 pscene_cache_key)
-        key, leaves = pscene_cache_key(scene)
-        if self._pscene_cache is None or self._pscene_cache[0] != key:
-            from ..kernels.pallas.megakernel import scene_has_emissive
-            self._pscene_cache = (key, leaves,
-                                  jitted_prepare(self.config.pallas_cand_size,
-                                                 self.config.pallas_grouping)(scene))
-            self._sl_cache = None
-            # Static parked-state layout flag for this scene (lru-cached).
-            self._fn = _jitted_pass(self.config, self.tolerance,
-                                    scene_has_emissive(scene))
-        return self._pscene_cache[2]
-
-    def _shortlists(self, pscene, cam: CameraState, cam_key):
-        from ..kernels.pallas.primary import device_shortlists_for
-        if self._sl_cache is not None and self._sl_cache[0] == cam_key:
-            return self._sl_cache[1]
-        self._sl_cache = (cam_key, device_shortlists_for(
-            pscene, cam, self.config, self.config.samples_per_pixel))
-        return self._sl_cache[1]
-
     def step(self, scene: SceneBuffers, cam: CameraState, seed: int) -> None:
-        # Accumulated samples (and the camera-keyed shortlists) are only
-        # valid for one viewpoint — reset on camera change, like
-        # ProgressiveRenderer.
+        # Accumulated samples are only valid for one viewpoint — reset on
+        # camera change, like ProgressiveRenderer.
         cam_key = tuple(float(np.asarray(x)) for x in jax.tree.leaves(cam))
         if cam_key != self._last_cam_key:
             self.reset()
             self._last_cam_key = cam_key
-        pscene = self._prepare(scene)
-        sl, slmeta, slattr = self._shortlists(pscene, cam, cam_key)
         reprobe = (self.reprobe_every > 0 and self._pass_count > 0
                    and self._pass_count % self.reprobe_every == 0)
-        self.film = self._fn(film=self.film, pscene=pscene, cam=cam,
+        self.film = self._fn(film=self.film, scene=scene, cam=cam,
                              frame_seed=jnp.uint32(seed & 0xFFFFFFFF),
                              sample_offset=jnp.uint32(self._sample_offset),
-                             reprobe=jnp.bool_(reprobe),
-                             sl=sl, slmeta=slmeta, slattr=slattr)
+                             reprobe=jnp.bool_(reprobe))
         self._sample_offset += self.config.samples_per_pixel
         self._pass_count += 1
 

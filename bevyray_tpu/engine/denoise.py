@@ -7,7 +7,7 @@ bilateral weights that stop the filter at color and depth edges. The depth
 guide comes for free — every frame already carries ``rt_depth``
 (raytrace.wgsl's depth output). Pure jnp and fully jittable: the 25 taps per
 iteration compile to shifted adds (``jnp.roll`` + edge masks), which XLA fuses
-into a handful of VPU passes — no gathers, TPU-friendly by construction.
+into a handful of elementwise passes — no gathers.
 
 Extension contract: not in the render path at all unless explicitly invoked
 (CLI ``--denoise N`` or a direct call); ``iterations=0`` returns the input

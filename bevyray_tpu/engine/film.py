@@ -23,7 +23,7 @@ from ..core.types import CameraState, RenderConfig, SceneBuffers
 from ..core.vec import Vec3
 from ..kernels.composite import composite
 from ..kernels.raygen import pixel_uv
-from .renderer import FrameResult, trace_sample
+from .renderer import FrameResult, trace_samples
 
 
 class Film(NamedTuple):
@@ -78,21 +78,23 @@ def new_film(config: RenderConfig) -> Film:
 
 
 def accumulate_impl(film: Film, scene: SceneBuffers, cam: CameraState,
-                    config: RenderConfig, frame_seed, sample_offset) -> Film:
-    n = config.n_pixels
+                    config: RenderConfig, frame_seed, sample_offset,
+                    spp_map=None) -> Film:
+    """Trace ``config.samples_per_pixel`` fresh samples (indices from
+    ``sample_offset``) and add them to the film. With a per-pixel target
+    ``spp_map`` a pixel takes only ``min(spp_map, spp)`` of them, and
+    ``n_samples`` becomes a per-pixel count."""
+    spp = config.samples_per_pixel
     u, v = pixel_uv(config.width, config.height)
-    pixel_ids = jnp.arange(n, dtype=jnp.uint32)
-
-    def body(i, f: Film) -> Film:
-        color, depth, segments = trace_sample(
-            scene, cam, config, pixel_ids, u, v,
-            (sample_offset + i).astype(jnp.uint32), frame_seed)
-        return Film(color_sum=f.color_sum + color,
-                    depth_sum=f.depth_sum + depth,
-                    n_samples=f.n_samples + 1.0,
-                    rays_traced=f.rays_traced + segments)
-
-    return jax.lax.fori_loop(0, config.samples_per_pixel, body, film)
+    pixel_ids = jnp.arange(config.n_pixels, dtype=jnp.uint32)
+    color_sum, depth_sum, rays = trace_samples(
+        scene, cam, config, pixel_ids, u, v, spp, sample_offset, frame_seed,
+        acc=(film.color_sum, film.depth_sum, film.rays_traced),
+        spp_map=spp_map)
+    took = (np.float32(spp) if spp_map is None
+            else jnp.clip(spp_map, 0, spp).astype(jnp.float32))
+    return Film(color_sum=color_sum, depth_sum=depth_sum,
+                n_samples=film.n_samples + took, rays_traced=rays)
 
 
 def resolve_impl(film: Film, cam: CameraState, config: RenderConfig,
@@ -124,52 +126,17 @@ def _jitted_resolve(config: RenderConfig):
     return jax.jit(functools.partial(resolve_impl, config=config))
 
 
-def pallas_accumulate_impl(film: Film, pscene, cam: CameraState,
-                           config: RenderConfig, frame_seed, sample_offset,
-                           sl=None, slmeta=None, slattr=None,
-                           has_emissive: bool = True) -> Film:
-    """Megakernel-backed accumulation: one fused kernel pass traces
-    ``config.samples_per_pixel`` fresh samples (offset so streams never repeat)
-    and returns SUMS that fold into the film."""
-    from ..kernels.pallas.megakernel import render_tiles, unshuffle_blocks
-
-    r, g, b, depth, segs = render_tiles(pscene, cam, config, frame_seed,
-                                        slattr=slattr,
-                                        sample_offset=sample_offset,
-                                        normalize=False, sl=sl, slmeta=slmeta,
-                                        has_emissive=has_emissive)
-    r, g, b, depth = (unshuffle_blocks(x, config) for x in (r, g, b, depth))
-    return Film(color_sum=film.color_sum + Vec3(r, g, b),
-                depth_sum=film.depth_sum + depth,
-                n_samples=film.n_samples + config.samples_per_pixel,
-                rays_traced=film.rays_traced + segs)
-
-
-@functools.lru_cache(maxsize=32)
-def _jitted_pallas_accumulate(config: RenderConfig, has_emissive: bool = True):
-    # has_emissive is static (parked-state layout — megakernel._st_layout).
-    return jax.jit(functools.partial(pallas_accumulate_impl, config=config,
-                                     has_emissive=has_emissive),
-                   donate_argnames=("film",))
-
-
 class ProgressiveRenderer:
     """Accumulating front-end: call ``step`` repeatedly; the estimate refines.
 
     The film auto-resets when the camera pose/projection changes (compared on
-    host — camera state is a handful of scalars). ``backend="pallas"`` runs each
-    pass through the fused megakernel (hardware RNG on TPU).
+    host — camera state is a handful of scalars).
     """
 
-    def __init__(self, config: RenderConfig, backend: str = "xla"):
+    def __init__(self, config: RenderConfig):
         self.config = config
-        self.backend = backend
         self.film = new_film(config)
-        if backend == "pallas":
-            self._accumulate = _jitted_pallas_accumulate(config)
-            self._prepare_cache = None
-        else:
-            self._accumulate = _jitted_accumulate(config)
+        self._accumulate = _jitted_accumulate(config)
         self._resolve = _jitted_resolve(config)
         self._last_cam_key = None
         self._sample_offset = 0
@@ -189,47 +156,10 @@ class ProgressiveRenderer:
         if key != self._last_cam_key:
             self.reset()
             self._last_cam_key = key
-        if self.backend == "pallas":
-            from ..kernels.pallas.megakernel import (jitted_prepare,
-                                                     pscene_cache_key)
-
-            # Key on all leaves prepare_pallas_scene bakes in (spheres,
-            # materials, triangles); keep them alive so ids stay unique.
-            sid, leaves = pscene_cache_key(scene)
-            if self._prepare_cache is None or self._prepare_cache[0] != sid:
-                from ..kernels.pallas.megakernel import scene_has_emissive
-                self._prepare_cache = (
-                    sid, leaves,
-                    jitted_prepare(self.config.pallas_cand_size,
-                                   self.config.pallas_grouping)(scene))
-                self._sl_cache = None
-                # Static parked-state layout flag — re-fetch the jitted step
-                # for this scene's layout (lru-cached, cheap on repeats).
-                self._accumulate = _jitted_pallas_accumulate(
-                    self.config, scene_has_emissive(scene))
-            pscene = self._prepare_cache[2]
-            # Host-built primary shortlists for phase-split bounce 0 (cached;
-            # the film already resets on camera change, so keying on the scene
-            # id + cam key suffices). shortlists_for owns the gate — including
-            # raising when a forced "split" is unsupported.
-            cache = getattr(self, "_sl_cache", None)
-            if cache is not None and cache[0] == (sid, key):
-                sl, slmeta, slattr = cache[1]
-            else:
-                from ..kernels.pallas.primary import device_shortlists_for
-                sl, slmeta, slattr = device_shortlists_for(
-                    pscene, cam, self.config, self.config.samples_per_pixel)
-                self._sl_cache = ((sid, key), (sl, slmeta, slattr))
-            self.film = self._accumulate(
-                film=self.film, pscene=pscene, cam=cam,
-                frame_seed=jnp.uint32(seed & 0xFFFFFFFF),
-                sample_offset=jnp.uint32(self._sample_offset),
-                sl=sl, slmeta=slmeta, slattr=slattr)
-        else:
-            self.film = self._accumulate(
-                film=self.film, scene=scene, cam=cam,
-                frame_seed=jnp.uint32(seed & 0xFFFFFFFF),
-                sample_offset=jnp.uint32(self._sample_offset))
+        self.film = self._accumulate(
+            film=self.film, scene=scene, cam=cam,
+            frame_seed=jnp.uint32(seed & 0xFFFFFFFF),
+            sample_offset=jnp.uint32(self._sample_offset))
         self._sample_offset += self.config.samples_per_pixel
         if raster_color is None:
             raster_color = Vec3.splat(jnp.float32(1.0))

@@ -1,4 +1,4 @@
-"""The wavefront frame step — TPU-native twin of the reference's per-pixel megakernel.
+"""The wavefront frame step — the batched twin of the reference's per-pixel shader.
 
 Reference control flow (raytrace.wgsl:93-224): one fragment thread per pixel runs a
 sample loop, each sample runs a bounce loop with per-thread ``break``s. Here the whole
@@ -6,6 +6,9 @@ frame is a flat SoA wavefront; the bounce loop is a ``lax.while_loop`` with an a
 mask (dead lanes are masked, and the loop exits early once every lane has terminated
 — the batched analog of the per-thread break). Everything jits into one XLA program;
 scene buffers stay resident on device across frames.
+
+This is the renderer's only path: ``Renderer``, ``ProgressiveRenderer``,
+``AdaptiveRenderer`` and the sharded step all run ``trace_samples``.
 """
 
 from __future__ import annotations
@@ -39,33 +42,35 @@ def _draw_ball(stream, base, first_slot):
     return rng.unit_ball_from_uniforms(*us)
 
 
+BVH_CROSSOVER = 4096  # primitives; unmeasured on the H100 (see resolve_intersect_backend)
+
+
 def resolve_intersect_backend(scene: SceneBuffers, config: RenderConfig) -> str:
     """Resolve ``'auto'`` to a concrete backend ONCE, considering all primitive
     types, so the sphere and triangle paths agree (a triangle-heavy scene must
     not brute-force its triangles just because the sphere table is small).
 
-    On a real TPU ``auto`` never picks ``bvh``: the per-lane stack traversal is
-    catastrophically slow on the VPU (measured 0.02 Mrays/s vs 13.9 for the
-    megakernel on a 5000-sphere scene — divergent while_loop + gathers), so the
-    BVH backend is a CPU/parity path there unless explicitly requested.
+    The choice depends on the scene alone, on every platform: ``auto`` walks
+    the BVH when one exists and a primitive table holds more than
+    ``BVH_CROSSOVER`` entries. That crossover has not been priced on the
+    H100 (a single smoke frame there had brute force ahead at 5,001 spheres);
+    it is a placeholder until a benchmark cell sits on each side of it.
     """
     backend = config.intersect_backend
     if backend == "auto":
-        if jax.default_backend() == "tpu":
-            return "brute"
         cap = scene.spheres.capacity
         if scene.triangles is not None:
             cap = max(cap, scene.triangles.capacity)
         has_bvh = scene.bvh is not None or scene.tri_bvh is not None
-        backend = "bvh" if (has_bvh and cap > 4096) else "brute"
+        backend = "bvh" if (has_bvh and cap > BVH_CROSSOVER) else "brute"
     return backend
 
 
 def make_intersect_fn(scene: SceneBuffers, config: RenderConfig):
     """Pick the sphere intersection backend (static decision, shapes static).
 
-    - ``brute``: dense chunked all-pairs tests — the TPU fast path (pure VPU
-      elementwise work, zero gathers) for reference-scale scenes;
+    - ``brute``: dense chunked all-pairs tests — pure elementwise work with one
+      gather per bounce, for reference-scale scenes;
     - ``bvh``: flattened-BVH stack traversal (kernels/traverse.py) — wins for large
       scenes where O(n) loses to O(log n) despite the gathers.
     """
@@ -87,8 +92,9 @@ def make_intersect_fn(scene: SceneBuffers, config: RenderConfig):
 def trace_sample(scene: SceneBuffers, cam: CameraState, config: RenderConfig,
                  pixel_ids: jnp.ndarray, u: jnp.ndarray, v: jnp.ndarray,
                  sample_index, frame_seed, intersect_fn=None,
-                 fixed_trip_count: bool = False):
-    """Trace one sample per pixel. Returns (color: Vec3 gamma-space, depth: [N]).
+                 fixed_trip_count: bool = False, live=None):
+    """Trace one sample per pixel. Returns (color: Vec3 gamma-space, depth: [N],
+    segments: f32 scalar).
 
     Twin of one iteration of ``trace_multisampled`` + ``raytrace``
     (raytrace.wgsl:159-224).
@@ -96,6 +102,9 @@ def trace_sample(scene: SceneBuffers, cam: CameraState, config: RenderConfig,
     ``fixed_trip_count``: disable the all-lanes-dead early exit. Required when
     ``intersect_fn`` contains cross-device collectives (sphere-sharded mode), where
     every peer must execute the same number of bounce iterations.
+
+    ``live``: optional [N] bool. A lane that is not live starts dead: it traces
+    no segment and returns zero color and zero depth.
     """
     if intersect_fn is None:
         intersect_fn = make_intersect_fn(scene, config)
@@ -133,7 +142,7 @@ def trace_sample(scene: SceneBuffers, cam: CameraState, config: RenderConfig,
         direction=direction,
         ray_color=Vec3.full((n,), 1.0, 1.0, 1.0),
         radiance=Vec3.full((n,), 0.0, 0.0, 0.0),
-        active=jnp.ones((n,), bool),
+        active=jnp.ones((n,), bool) if live is None else live,
         first_depth=jnp.full((n,), INF, f32),
         segments=jnp.float32(0.0),
     )
@@ -204,16 +213,54 @@ def trace_sample(scene: SceneBuffers, cam: CameraState, config: RenderConfig,
     # Rays that exhausted the bounce budget never picked up the sky, so their
     # radiance holds only emissive hits (0 in reference scenes — wgsl:215-217
     # blackness falls out naturally). Absorbed rays likewise.
-    color = final.radiance
     depth = jnp.where(final.first_depth >= INF, fallback_far, final.first_depth)
     # Per-sample gamma, then averaging across samples — faithful to the reference,
     # which averages post-gamma values (wgsl:165 sums raytrace() output, which is
     # gamma-encoded at wgsl:223).
-    return linear_to_gamma(color), depth, final.segments
+    color = linear_to_gamma(final.radiance)
+    if live is not None:
+        color = Vec3.where(live, color, Vec3.full((), 0.0, 0.0, 0.0))
+        depth = jnp.where(live, depth, 0.0)
+    return color, depth, final.segments
+
+
+def trace_samples(scene: SceneBuffers, cam: CameraState, config: RenderConfig,
+                  pixel_ids: jnp.ndarray, u: jnp.ndarray, v: jnp.ndarray,
+                  n_samples: int, first_sample, frame_seed, acc=None,
+                  spp_map=None, intersect_fn=None,
+                  fixed_trip_count: bool = False):
+    """Add ``n_samples`` samples per pixel, with sample indices
+    ``first_sample + k``, to ``acc = (color_sum, depth_sum, segments)``
+    (zeros when None). Returns the updated sums.
+
+    ``spp_map``: optional [N] int per-pixel sample target. The pass-local
+    sample ``k`` of a pixel is traced only when ``k < spp_map[pixel]``; the
+    others start dead and add nothing to any sum (``trace_sample(live=)``).
+    """
+    n = pixel_ids.shape[0]
+    if acc is None:
+        acc = (Vec3.full((n,), 0.0, 0.0, 0.0), jnp.zeros((n,), jnp.float32),
+               jnp.float32(0.0))
+    first = jnp.asarray(first_sample).astype(jnp.uint32)
+
+    def body(k, acc):
+        color_sum, depth_sum, seg_sum = acc
+        live = None if spp_map is None else k < spp_map
+        color, depth, segments = trace_sample(
+            scene, cam, config, pixel_ids, u, v, first + k.astype(jnp.uint32),
+            frame_seed, intersect_fn=intersect_fn,
+            fixed_trip_count=fixed_trip_count, live=live)
+        return (color_sum + color, depth_sum + depth, seg_sum + segments)
+
+    return jax.lax.fori_loop(0, n_samples, body, acc)
 
 
 def render_impl(scene: SceneBuffers, cam: CameraState, config: RenderConfig,
-                frame_seed, raster_color: Vec3, raster_depth) -> FrameResult:
+                frame_seed, raster_color: Vec3, raster_depth,
+                spp_map=None) -> FrameResult:
+    """One frame of ``config.samples_per_pixel`` samples per pixel, or of
+    ``min(spp_map, spp)`` samples per pixel when a per-pixel target is given
+    (each pixel's mean then divides by its own count)."""
     h, w = config.height, config.width
     n = h * w
     u, v = pixel_uv(w, h)
@@ -229,17 +276,14 @@ def render_impl(scene: SceneBuffers, cam: CameraState, config: RenderConfig,
                            rt_depth=jnp.zeros((h, w), jnp.float32),
                            rays_traced=jnp.float32(0.0))
 
-    def sample_body(i, acc):
-        color_sum, depth_sum, seg_sum = acc
-        color, depth, segments = trace_sample(scene, cam, config, pixel_ids, u, v,
-                                              jnp.uint32(i), frame_seed)
-        return (color_sum + color, depth_sum + depth, seg_sum + segments)
-
-    zero = (Vec3.full((n,), 0.0, 0.0, 0.0), jnp.zeros((n,), jnp.float32),
-            jnp.float32(0.0))
-    color_sum, depth_sum, seg_sum = jax.lax.fori_loop(0, config.samples_per_pixel,
-                                                      sample_body, zero)
-    inv_spp = np.float32(1.0 / config.samples_per_pixel)
+    spp = config.samples_per_pixel
+    color_sum, depth_sum, seg_sum = trace_samples(
+        scene, cam, config, pixel_ids, u, v, spp, 0, frame_seed,
+        spp_map=spp_map)
+    if spp_map is None:
+        inv_spp = np.float32(1.0 / spp)
+    else:
+        inv_spp = 1.0 / jnp.clip(spp_map, 1, spp).astype(jnp.float32)
     rt_color = color_sum.scale(inv_spp)       # wgsl:169
     rt_depth = depth_sum * inv_spp            # wgsl:170
 

@@ -4,8 +4,8 @@ The reference threads a serial RNG through each pixel, so the number of draws a 
 consumes depends on its material history (raytrace.wgsl:234-285). That cannot
 vectorize. Instead, every (pixel, sample) gets a counter-based stream
 (:mod:`bevyray_tpu.core.rng`) and every bounce owns a fixed window of draw slots.
-The JAX renderer, the Pallas kernels, and the NumPy oracle all address this exact
-layout, which is what makes their images comparable.
+The JAX renderer and the NumPy oracle both address this exact layout, which is what
+makes their images comparable.
 
 Layout per (pixel, sample) stream::
 

@@ -9,10 +9,11 @@ reference's exact acceptance semantics:
 - normals always outward, never flipped (wgsl:356, quirk #3);
 - ``front_face = dot(dir, normal) < 0`` (wgsl:358).
 
-TPU-first shape: instead of one thread walking a sphere list, we test a whole ray
-batch against sphere *chunks* as dense [rays × chunk] elementwise blocks (perfect VPU
-tiling, zero gathers in the test loop), keeping a running (t, index) min. A single
-gather per bounce then fetches the winning sphere's attributes.
+Wavefront shape: instead of one thread walking a sphere list, we test a whole ray
+batch against sphere *chunks* as dense [rays × chunk] elementwise blocks (zero
+gathers in the test loop), keeping a running (t, index) min. A single gather per
+bounce then fetches the winning sphere's attributes. ``sphere_chunk`` bounds the
+[rays × chunk] f32 pair block XLA may materialise (4.25 GB at 1080p, chunk 512).
 """
 
 from __future__ import annotations

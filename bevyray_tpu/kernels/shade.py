@@ -1,8 +1,9 @@
 """Material scattering — batched twin of ``scatter`` (raytrace.wgsl:231-299).
 
-The reference picks one of three branches per thread via serial RNG draws. On TPU all
+The reference picks one of three branches per thread via serial RNG draws. Here all
 three branches are computed densely for every lane and the result is selected by
-mask — cheap, because shading is a handful of VPU ops compared to intersection.
+mask — cheap, because shading is a handful of elementwise ops compared to
+intersection.
 
 Faithfully reproduced quirks (SURVEY.md §2):
 - metal reflection direction is ``normalize(reflect(d, n)) + roughness * ball()`` and

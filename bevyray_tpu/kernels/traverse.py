@@ -5,11 +5,11 @@ fixed 32-entry stack, wgsl:310; overflow silently truncates traversal — SURVEY
 quirk #9 — reproduced here). The batch iterates in lock-step under a
 ``lax.while_loop`` until every lane's stack is empty.
 
-TPU honesty note: this is gather-heavy and divergent — the structurally hostile case
-for vector units (SURVEY.md §7 "hard parts" #1). It exists for (a) feature parity,
-(b) correctness cross-checks against the dense brute-force path, and (c) large
-scenes where O(n) brute force loses to O(log n) traversal despite the gathers. For
-the reference's ~500-sphere scenes the dense path (intersect.py) is the fast path;
+This is gather-heavy and divergent: every lane walks in lockstep until the last
+lane's stack is empty (SURVEY.md §7 "hard parts" #1). It exists for (a) feature
+parity, (b) correctness cross-checks against the dense brute-force path, and (c)
+large scenes where O(n) brute force loses to O(log n) traversal despite the gathers.
+For the reference's ~500-sphere scenes the dense path (intersect.py) is used;
 ``engine.renderer`` picks per scene size.
 
 Multi-prim leaves (``max_leaf_size`` > 1, obvhs MAX_MODELS_PER_NODE —

@@ -1,8 +1,9 @@
 """Multi-chip rendering: SPMD sharding of the frame step over a device mesh.
 
 The reference is strictly single-GPU (SURVEY.md §2 parallelism inventory); scaling it
-is new design, done the TPU way — ``jax.sharding.Mesh`` + ``shard_map`` with XLA
-collectives over ICI, never host-side ray splitting.
+is new design — ``jax.sharding.Mesh`` + ``shard_map`` with XLA collectives (NCCL
+over NVLink between GPUs), never host-side ray splitting. The cards of one host
+are joined all to all, so the mesh shape follows the algorithm alone.
 
 Mesh axes and what they shard (the renderer's analogs of the classic parallelism
 kinds):
@@ -23,9 +24,7 @@ nor routed experts; SURVEY.md §2 records that none exist in the reference eithe
 
 from __future__ import annotations
 
-import dataclasses
 import functools
-from collections import OrderedDict
 from typing import Optional
 
 import jax
@@ -36,7 +35,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from ..core.constants import INF
 from ..core.types import CameraState, RenderConfig, SceneBuffers, Spheres
 from ..core.vec import Vec3
-from ..engine.renderer import FrameResult, trace_sample
+from ..engine.renderer import FrameResult, trace_samples
 from ..kernels.composite import composite
 from ..kernels.intersect import intersect_spheres
 from ..kernels.raygen import pixel_uv
@@ -124,21 +123,12 @@ def _sharded_step_cached(mesh: Mesh, config: RenderConfig):
         intersect_fn = (_tp_intersect_fn(scene, config, tp) if tp > 1 else None)
         dp_i = jax.lax.axis_index("dp")
 
-        def sample_body(k, acc):
-            color_sum, depth_sum, seg_sum = acc
-            sample_index = (dp_i * local_spp + k).astype(jnp.uint32)
-            color, depth, segments = trace_sample(
-                scene, cam, config, pixel_ids, u, v, sample_index, frame_seed,
-                intersect_fn=intersect_fn, fixed_trip_count=(tp > 1))
-            return (color_sum + color, depth_sum + depth, seg_sum + segments)
-
+        color_sum, depth_sum, seg_sum = trace_samples(
+            scene, cam, config, pixel_ids, u, v, local_spp, dp_i * local_spp,
+            frame_seed, intersect_fn=intersect_fn, fixed_trip_count=(tp > 1))
         n_local = u.shape[0]
-        zero = (Vec3.full((n_local,), 0.0, 0.0, 0.0),
-                jnp.zeros((n_local,), jnp.float32), jnp.float32(0.0))
-        color_sum, depth_sum, seg_sum = jax.lax.fori_loop(
-            0, local_spp, sample_body, zero)
 
-        # Merge partial sample sums across the dp axis (one ICI collective).
+        # Merge partial sample sums across the dp axis (one collective).
         color_sum = Vec3(*(jax.lax.psum(c, "dp") for c in color_sum))
         depth_sum = jax.lax.psum(depth_sum, "dp")
         seg_sum = jax.lax.psum(jax.lax.psum(seg_sum, "dp"), "sp")
@@ -187,187 +177,3 @@ def _sharded_step_cached(mesh: Mesh, config: RenderConfig):
 def make_sharded_step(mesh: Mesh, config: RenderConfig):
     """Compile (once per mesh×config) the SPMD frame step."""
     return _sharded_step_cached(mesh, config)
-
-
-# ---------------------------------------------------------------------------
-# Multi-chip megakernel: the fused Pallas kernel runs per device inside
-# shard_map — pixel rows over sp, samples over dp (one psum). The tp
-# (sphere-table) axis stays exclusive to the XLA path, whose intersection can
-# reduce partial hits across devices; the megakernel keeps its whole (small)
-# scene in SMEM/VMEM instead.
-# ---------------------------------------------------------------------------
-
-@functools.lru_cache(maxsize=16)
-def _pallas_sharded_step_cached(mesh: Mesh, config: RenderConfig,
-                                has_emissive: bool = True):
-    from ..kernels.pallas.megakernel import (TILE, block_grid,
-                                             prepare_pallas_scene, render_tiles,
-                                             unshuffle_blocks)
-
-    sp, dp, tp = (mesh.shape[a] for a in AXES)
-    if tp != 1:
-        raise ValueError("the megakernel multi-chip path supports sp/dp axes "
-                         "only; use the XLA sharded step for tp sphere sharding")
-    nbx, nby = block_grid(config)
-    n_blocks = nbx * nby
-    n_blocks_padded = -(-n_blocks // sp) * sp
-    blocks_local = n_blocks_padded // sp
-    n = config.n_pixels
-    if config.samples_per_pixel % dp != 0:
-        raise ValueError(f"spp {config.samples_per_pixel} must divide dp={dp}")
-    local_spp = config.samples_per_pixel // dp
-    local_config = dataclasses.replace(config, samples_per_pixel=local_spp)
-
-    def body(pscene, cam, frame_seed, sl=None, slmeta=None):
-        sp_i = jax.lax.axis_index("sp")
-        dp_i = jax.lax.axis_index("dp")
-        r, g, b, depth, segs = render_tiles(
-            pscene, cam, local_config, frame_seed,
-            block_offset=(sp_i * blocks_local).astype(jnp.uint32),
-            sample_offset=(dp_i * local_spp).astype(jnp.uint32),
-            n_blocks_local=blocks_local, normalize=False,
-            sl=sl, slmeta=slmeta, has_emissive=has_emissive)
-        # Merge partial sample sums across dp; segments across everything.
-        r, g, b, depth = (jax.lax.psum(x, "dp") for x in (r, g, b, depth))
-        segs = jax.lax.psum(jax.lax.psum(segs, "dp"), "sp")
-        inv_spp = np.float32(1.0 / config.samples_per_pixel)
-        rt = jnp.stack([r * inv_spp, g * inv_spp, b * inv_spp], axis=-1)
-        return rt, depth * inv_spp, segs
-
-    sharded = jax.shard_map(
-        body, mesh=mesh,
-        in_specs=(P(), P(), P()),
-        out_specs=(P("sp"), P("sp"), P()),
-        check_vma=False,
-    )
-    # Phase-split variant: per-block primary shortlists ride in sharded over
-    # sp (each device receives exactly its tile range's rows).
-    sharded_split = jax.shard_map(
-        functools.partial(body), mesh=mesh,
-        in_specs=(P(), P(), P(), P("sp"), P("sp")),
-        out_specs=(P("sp"), P("sp"), P()),
-        check_vma=False,
-    )
-
-    @jax.jit
-    def step(scene, cam, frame_seed, raster_color, raster_depth,
-             sl=None, slmeta=None, order=None):
-        # ``order``: host-computed kd grouping permutation (grouping.py),
-        # passed in because data-dependent clustering can't trace; None =
-        # in-jit morton sort (config.pallas_grouping == "morton").
-        pscene = prepare_pallas_scene(
-            scene, cand_size=config.pallas_cand_size, order=order)
-        if sl is None:
-            rt, rt_depth, segs = sharded(pscene, cam, frame_seed)
-        else:
-            rt, rt_depth, segs = sharded_split(pscene, cam, frame_seed,
-                                               sl, slmeta)
-        # Gathered outputs are block-ordered (padded to sp·blocks_local
-        # blocks); un-shuffle to scanline order and crop, THEN composite —
-        # raster inputs are scanline-ordered and may be per-pixel arrays, so
-        # they can't be consumed inside shard_map under a replicated spec.
-        rgb = [unshuffle_blocks(rt[:, k], config) for k in range(3)]
-        rt_depth = unshuffle_blocks(rt_depth, config)
-        out = composite(config.level, Vec3(*rgb), rt_depth, cam.near, cam.far,
-                        raster_color, raster_depth)
-        img = jnp.stack([jnp.broadcast_to(out.x, (n,)),
-                         jnp.broadcast_to(out.y, (n,)),
-                         jnp.broadcast_to(out.z, (n,))], axis=-1)
-        return FrameResult(
-            image=img.reshape(config.height, config.width, 3),
-            rt_depth=rt_depth.reshape(config.height, config.width),
-            rays_traced=segs)
-
-    return step
-
-
-# Shortlist cache for the sharded front-end: a small keyed LRU, so alternating
-# scenes/cameras through the sharded step (multi-view loops) hit the cache both
-# ways. ``leaves`` rides in each entry to keep its id()-based key unique while
-# cached (id()s are only unique among live objects).
-_SHARDED_SL_CACHE: "OrderedDict" = OrderedDict()
-_SHARDED_SL_CACHE_MAX = 8
-
-
-# has_emissive forces three device->host material transfers to compute, so the
-# sharded per-frame entry point caches it per scene (every other front-end
-# already computes it once behind a scene cache — ADVICE round 4).
-_HAS_EMISSIVE_CACHE: "OrderedDict" = OrderedDict()
-
-
-def _cached_has_emissive(scene: SceneBuffers) -> bool:
-    from ..kernels.pallas.megakernel import (pscene_cache_key,
-                                             scene_has_emissive)
-    key, leaves = pscene_cache_key(scene)
-    hit = _HAS_EMISSIVE_CACHE.get(key)
-    if hit is not None:
-        _HAS_EMISSIVE_CACHE.move_to_end(key)
-        return hit[1]
-    val = scene_has_emissive(scene)
-    _HAS_EMISSIVE_CACHE[key] = (leaves, val)
-    while len(_HAS_EMISSIVE_CACHE) > _SHARDED_SL_CACHE_MAX:
-        _HAS_EMISSIVE_CACHE.popitem(last=False)
-    return val
-
-
-def _pallas_scene_key(scene: SceneBuffers, cam: CameraState,
-                      config: RenderConfig, sp: int, dp: int):
-    # dp matters too: the cached gate decision keys on local_spp = spp // dp.
-    from ..kernels.pallas.megakernel import pscene_cache_key
-    sid, leaves = pscene_cache_key(scene)
-    cam_key = tuple(float(np.asarray(x)) for x in jax.tree.leaves(cam))
-    return (sid, cam_key, config, sp, dp), leaves
-
-
-def render_frame_sharded_pallas(mesh: Mesh, scene: SceneBuffers, cam: CameraState,
-                                config: RenderConfig, frame_seed,
-                                raster_color: Optional[Vec3] = None,
-                                raster_depth=None) -> FrameResult:
-    """Render one frame with the fused megakernel running SPMD over an
-    (sp, dp, 1) mesh."""
-    step = _pallas_sharded_step_cached(mesh, config,
-                                       _cached_has_emissive(scene))
-    if raster_color is None:
-        raster_color = Vec3.splat(jnp.float32(1.0))
-    if raster_depth is None:
-        raster_depth = jnp.float32(0.0)
-    # Host-built primary shortlists (phase-split bounce 0) for the padded
-    # block grid, sharded over sp by the step's shard_map.
-    # shortlists_for owns the gate; results cache on (scene, camera, config,
-    # sp) so a frame loop doesn't rebuild per frame.
-    sl = slmeta = None
-    sp, dp = mesh.shape["sp"], mesh.shape["dp"]
-    local_spp = config.samples_per_pixel // max(dp, 1)
-    from ..kernels.pallas.grouping import cached_order
-    from ..kernels.pallas.megakernel import block_grid, jitted_prepare
-    from ..kernels.pallas.primary import shortlists_for
-    # The kd permutation feeds the jitted step as an array argument (the
-    # host clustering can't trace); cached_order keeps it once per scene.
-    # The shortlist build below must index the SAME prepared order.
-    order = (cached_order(scene, config.pallas_cand_size)
-             if config.pallas_grouping == "kd" else None)
-    key, leaves = _pallas_scene_key(scene, cam, config, sp, dp)
-    cached = _SHARDED_SL_CACHE.get(key)
-    if cached is not None:
-        _SHARDED_SL_CACHE.move_to_end(key)
-        sl, slmeta = cached[1]
-    else:
-        nbx, nby = block_grid(config)
-        n_blocks_padded = -(-(nbx * nby) // sp) * sp
-        pscene = jitted_prepare(config.pallas_cand_size,
-                                config.pallas_grouping)(scene)
-        # The sharded step keeps the global attribute gather (no slattr):
-        # shipping per-shard local tables through shard_map adds a third
-        # sharded operand for a ~2% single-chip win — not worth the spec
-        # complexity on the multi-chip path.
-        sl_np, slmeta_np, _ = shortlists_for(np.asarray(pscene.sph), cam,
-                                             config, local_spp, block_lo=0,
-                                             n_blocks=n_blocks_padded)
-        if sl_np is not None:
-            sl = jnp.asarray(sl_np).reshape(n_blocks_padded, -1)
-            slmeta = jnp.asarray(slmeta_np)
-        _SHARDED_SL_CACHE[key] = (leaves, (sl, slmeta))
-        while len(_SHARDED_SL_CACHE) > _SHARDED_SL_CACHE_MAX:
-            _SHARDED_SL_CACHE.popitem(last=False)
-    return step(scene, cam, jnp.uint32(frame_seed), raster_color, raster_depth,
-                sl=sl, slmeta=slmeta, order=order)

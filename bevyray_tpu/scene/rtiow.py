@@ -87,6 +87,27 @@ def final_scene(seed: int = 42, grid: int = 11,
     return world
 
 
+def dense_scene(n: int = 5000, seed: int = 2,
+                camera: RaytracedCamera | None = None) -> World:
+    """Dense stress scene: ``n`` random diffuse spheres (r 0.1-0.4) scattered over
+    a 28×28 patch of the ground sphere, seen from (0, 4, 18). Above the BVH
+    crossover, so ``auto`` walks the BVH here (``kernels/traverse.py``)."""
+    rng = np.random.RandomState(seed)
+    world = World()
+    world.set_camera(Transform.from_xyz(0.0, 4.0, 18.0).looking_at((0.0, 0.0, 0.0)),
+                     PerspectiveProjection(),
+                     camera or RaytracedCamera(level=Raytracing.PURE))
+    world.spawn_sphere(Transform.from_xyz(0.0, -1000.0, 0.0), RaytracedSphere(1000.0),
+                       StandardMaterial(base_color=(0.5, 0.5, 0.5)))
+    for _ in range(n):
+        p = rng.uniform(-14, 14, 3)
+        p[1] = rng.uniform(0.2, 3.0)
+        world.spawn_sphere(Transform.from_xyz(*p),
+                           RaytracedSphere(float(rng.uniform(0.1, 0.4))),
+                           StandardMaterial(base_color=tuple(rng.rand(3))))
+    return world
+
+
 def simple_scene(camera: RaytracedCamera | None = None) -> World:
     """BASELINE config 1: three Lambertian spheres + ground (CPU-runnable)."""
     world = World()

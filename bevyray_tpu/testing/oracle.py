@@ -1,6 +1,6 @@
 """Scalar NumPy oracle — an independent implementation of the exact algorithm.
 
-This is the golden-image reference the JAX/Pallas renderers are diffed against
+This is the golden-image reference the JAX renderer is diffed against
 (SURVEY.md §4). It deliberately uses the *reference's* control-flow shape — a serial
 per-ray bounce loop with real ``break``s (raytrace.wgsl:189-212) — rather than the
 renderer's masked wavefront, so a bug in the masking logic cannot hide in both.

@@ -2,7 +2,7 @@
 no GPU timing, ``timestamp_writes: None``; labeled passes only).
 
 Provides named-scope annotation (shows up in XLA/XProf traces), a device trace
-context manager, and a frame-timing harness used by bench.py and the CLI.
+context manager, and a frame-timing harness (not yet wired into any benchmark script).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Render every BASELINE.json config at FULL size on the local chip and report
+"""Render every BASELINE.json config at full size on one GPU and report
 throughput — the per-config evidence behind the single-number bench.py.
 
     python scripts/bench_matrix.py        # one JSON line per config + summary
@@ -9,93 +9,84 @@ Configs (BASELINE.json):
  3. RTiOW final scene (~500 spheres), 720p, 16 spp
  4. Defocus + emissive + cosine sampling, 1080p, 64 spp accumulation
  5. Hybrid: raster layer (cube) depth-blended + triangle mesh, 720p, 16 spp
+
+Every timed frame ends in ``jax.block_until_ready``; ``rows(scale=...)`` runs the
+same configs at a fraction of their size (the CPU rehearsal in the tests).
 """
 
 import json
+import os
 import sys
 import time
 
+import jax
 import numpy as np
 
-sys.path.insert(0, ".")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def _time(render, n=3):
-    f = render(0)
-    np.asarray(f.image[0, 0])
+    jax.block_until_ready(render(0))
     ts, rays = [], []
     for i in range(n):
         t0 = time.perf_counter()
-        f = render(i + 1)
-        np.asarray(f.image[0, 0])
+        f = jax.block_until_ready(render(i + 1))
         ts.append(time.perf_counter() - t0)
         rays.append(float(f.rays_traced))
     return float(np.percentile(ts, 50)), float(np.mean(rays))
 
 
-def main():
-    import jax
-
-    from bevyray_tpu import (RaytracedCamera, RaytracedSphere, Raytracing,
-                             RenderConfig, StandardMaterial, Transform, rtiow)
+def rows(scale=1.0, frames=3, accum_passes=16):
+    """One dict per config; sizes are the configs' own times ``scale``."""
+    from bevyray_tpu import (RaytracedCamera, Raytracing, RenderConfig,
+                             Renderer, StandardMaterial, Transform, rtiow)
     from bevyray_tpu.engine.film import ProgressiveRenderer
-    from bevyray_tpu.engine.pallas_renderer import PallasRenderer
     from bevyray_tpu.engine.raster import raster_layer
     from bevyray_tpu.scene.components import cube_mesh
-    from bevyray_tpu.scene.world import World
+
+    def px(n):
+        return max(8, int(n * scale))
 
     out = []
 
-    def record(name, p50, rays):
-        row = {"config": name, "p50_ms": round(p50 * 1e3, 1),
-               "mrays": round(rays / p50 / 1e6, 1)}
+    def record(name, world, w, h, spp, bounces, level, **kw):
+        cfg = RenderConfig(width=px(w), height=px(h), samples_per_pixel=spp,
+                           bounces=bounces, level=level, **kw)
+        cam = world.camera_state(aspect=cfg.width / cfg.height)
+        rc, rd = (raster_layer(world, cam, cfg) if level < 3
+                  else (None, None))
+        r = Renderer(cfg)
+        sc = world.extract(with_bvh=False)
+        p50, rays = _time(lambda s: r.render(sc, cam, seed=s, raster_color=rc,
+                                             raster_depth=rd), frames)
+        row = {"config": f"{name} {cfg.width}x{cfg.height}/{spp}spp",
+               "p50_ms": p50 * 1e3, "segments_per_s": rays / p50}
         out.append(row)
         print(json.dumps(row), flush=True)
 
-    # 1. simple scene 256x256/4spp/depth 8
-    w = rtiow.simple_scene()
-    cfg = RenderConfig(width=256, height=256, samples_per_pixel=4, bounces=8,
-                       level=3)
-    r = PallasRenderer(cfg)
-    sc, cam = w.extract(with_bvh=False), w.camera_state(aspect=1.0)
-    record("1: ch9 256x256/4spp", *_time(lambda s: r.render(sc, cam, seed=s)))
-
-    # 2. materials 512x512/16spp
-    w = rtiow.material_test_scene()
-    cfg = RenderConfig(width=512, height=512, samples_per_pixel=16, bounces=8,
-                       level=3)
-    r = PallasRenderer(cfg)
-    sc, cam = w.extract(with_bvh=False), w.camera_state(aspect=1.0)
-    record("2: materials 512x512/16spp",
-           *_time(lambda s: r.render(sc, cam, seed=s)))
-
-    # 3. final scene 720p/16spp
-    w = rtiow.final_scene(seed=42)
-    cfg = RenderConfig(width=1280, height=720, samples_per_pixel=16, bounces=4,
-                       level=3)
-    r = PallasRenderer(cfg)
-    sc, cam = w.extract(with_bvh=False), w.camera_state(aspect=16 / 9)
-    record("3: final 720p/16spp", *_time(lambda s: r.render(sc, cam, seed=s)))
+    record("1: ch9", rtiow.simple_scene(), 256, 256, 4, 8, 3)
+    record("2: materials", rtiow.material_test_scene(), 512, 512, 16, 8, 3)
+    record("3: final", rtiow.final_scene(seed=42), 1280, 720, 16, 4, 3)
 
     # 4. defocus + emissive + cosine, 1080p, 64 spp via accumulation (16x4)
     w = rtiow.night_scene(camera=RaytracedCamera(
         level=Raytracing.PURE, aperture=0.15, focus_distance=6.0))
-    cfg = RenderConfig(width=1920, height=1080, samples_per_pixel=4, bounces=4,
-                       level=3, defocus=True, diffuse_sampling="cosine")
-    prog = ProgressiveRenderer(cfg, backend="pallas")
+    cfg = RenderConfig(width=px(1920), height=px(1080), samples_per_pixel=4,
+                       bounces=4, level=3, defocus=True,
+                       diffuse_sampling="cosine")
+    prog = ProgressiveRenderer(cfg)
     sc, cam = w.extract(with_bvh=False), w.camera_state(aspect=16 / 9)
-    f = prog.step(sc, cam, seed=0)
-    np.asarray(f.image[0, 0])          # compile
+    f = jax.block_until_ready(prog.step(sc, cam, seed=0))   # compile
     t0 = time.perf_counter()
     rays0 = float(f.rays_traced)
-    for i in range(15):
+    for i in range(accum_passes - 1):
         f = prog.step(sc, cam, seed=i + 1)
-    np.asarray(f.image[0, 0])
+    jax.block_until_ready(f)
     dt = time.perf_counter() - t0
-    rays = float(f.rays_traced) - rays0
-    out.append({"config": "4: defocus+emissive+cosine 1080p/64spp accum",
-                "total_s": round(dt, 2), "mrays": round(rays / dt / 1e6, 1),
-                "spp": prog.samples_accumulated})
+    out.append({"config": f"4: defocus+emissive+cosine {cfg.width}x"
+                          f"{cfg.height}/{prog.samples_accumulated}spp accum",
+                "total_s": dt,
+                "segments_per_s": (float(f.rays_traced) - rays0) / dt})
     print(json.dumps(out[-1]), flush=True)
 
     # 5. hybrid 720p/16spp: final scene + raster cube + a triangle mesh
@@ -103,27 +94,19 @@ def main():
     w.spawn_mesh(Transform.from_xyz(-4.0, 0.6, 1.0), cube_mesh(1.2),
                  StandardMaterial(base_color=(0.2, 0.5, 0.9), metallic=1.0,
                                   perceptual_roughness=0.15))
-    cfg = RenderConfig(width=1280, height=720, samples_per_pixel=16, bounces=4,
-                       level=2)
-    cam = w.camera_state(aspect=16 / 9)
-    rc, rd = raster_layer(w, cam, cfg)
-    r = PallasRenderer(cfg)
-    sc = w.extract(with_bvh=False)
-    record("5: hybrid raster+mesh 720p/16spp",
-           *_time(lambda s: r.render(sc, cam, seed=s, raster_color=rc,
-                                     raster_depth=rd)))
+    record("5: hybrid raster+mesh", w, 1280, 720, 16, 4, 2)
+    return out
 
-    # 6. interactive paths: orbit camera + per-frame sphere edit (VERDICT r4
-    #    item 3 — the reference's flycam/gizmo loop, main.rs:34-45). Full
-    #    detail (1080p + pipelined arms) lives in scripts/bench_orbit.py; this
-    #    row keeps the moving-camera p50 in the per-config evidence.
-    import os
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from bench_orbit import bench as orbit_bench
-    for row in orbit_bench(width=1280, height=720, spp=16, frames=12):
-        out.append(row)
 
-    print(json.dumps({"device": str(jax.devices()[0]), "rows": len(out)}))
+def main():
+    from bevyray_tpu.utils.compile_cache import enable_compile_cache
+    from bevyray_tpu.utils.device import card_lines, device_record, require_gpus
+
+    devices = require_gpus(1)
+    enable_compile_cache()
+    print("\n".join(card_lines()), flush=True)
+    out = rows()
+    print(json.dumps({"device": device_record(devices), "rows": len(out)}))
     return 0
 
 

@@ -1,36 +1,30 @@
-"""Moving-camera (orbit) and per-frame-edit benches for the Pallas path.
+"""Moving-camera (orbit) and per-frame-edit benches on one GPU.
 
 The reference is an interactive app: a flycam mutates the camera every frame
-(main.rs:34-45) and edits re-extract the scene (extract.rs:280-337). Our
-phase-split fast path builds per-block primary shortlists on the HOST per
-(scene, camera), so a moving camera pays host work + upload that the static
-headline bench never sees (VERDICT r4 item 3 / weak #5). This script measures
-that path two ways per mutation kind:
+(main.rs:34-45) and edits re-extract the scene (extract.rs:280-337). This script
+measures that loop two ways per mutation kind:
 
-- ``synced``     — mutate, render, block on the frame: the worst-case latency
-                   a caller sees if it insists on the frame before continuing.
-- ``pipelined``  — dispatch frame i (device), then do frame i+1's host work
-                   (camera shortlists / edit + extract + prepare) while the
-                   device renders, THEN block on frame i. This is the natural
-                   interactive loop shape (present is async); per-frame cost
-                   becomes max(device, host) instead of device + host.
+- ``synced``     — mutate, render, block on the frame: the latency a caller
+                   sees if it insists on the frame before continuing.
+- ``pipelined``  — dispatch frame i, then do frame i+1's host work (camera
+                   state, or edit + extract) while the device renders, THEN
+                   block on frame i: per-frame cost becomes
+                   max(device, host) instead of device + host.
 
 Static-camera p50 is measured in the same session as the reference point.
-Also reports the number of distinct shortlist capacities the orbit touched —
-the pow2 quantization in primary.shortlist_capacity exists so this is 1-2
-(every distinct capacity is a full megakernel recompile).
 
-Run on the real TPU from the repo root:  python scripts/bench_orbit.py
-One JSON line per row; tee to ORBIT_r05.json.
+    python scripts/bench_orbit.py      # one JSON line per row
 """
 
 import json
+import os
 import sys
 import time
 
+import jax
 import numpy as np
 
-sys.path.insert(0, ".")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def orbit_cams(world, frames, aspect, arc_deg=40.0):
@@ -55,83 +49,48 @@ def orbit_cams(world, frames, aspect, arc_deg=40.0):
 
 
 def p50_ms(ts):
-    return round(float(np.percentile(ts, 50)) * 1e3, 2)
+    return float(np.percentile(ts, 50)) * 1e3
 
 
 def bench(width=1920, height=1080, spp=16, bounces=4, frames=24, seed=42):
-    from bevyray_tpu import RenderConfig, rtiow
-    from bevyray_tpu.engine.pallas_renderer import PallasRenderer
-    from bevyray_tpu.kernels.pallas import primary
+    from bevyray_tpu import RenderConfig, Renderer, rtiow
 
     world = rtiow.final_scene(seed=seed)
-    aspect = width / height
     config = RenderConfig(width=width, height=height, samples_per_pixel=spp,
                           bounces=bounces, level=3)
-    renderer = PallasRenderer(config)
+    renderer = Renderer(config)
     scene = world.extract(with_bvh=False)
-    cams = orbit_cams(world, frames, aspect)
+    cams = orbit_cams(world, frames, width / height)
     static_cam = cams[frames // 2]
-
-    # Warm-up: compile every distinct shortlist shape the orbit will touch
-    # (pow2 capacities — normally one) plus the static shape.
-    pscene = renderer.prepare(scene)
-    caps = set()
-    for cam in cams:
-        sl, _, _ = renderer.shortlists(pscene, cam)
-        caps.add(None if sl is None else int(sl.shape[-1]))
-    for cap_cam in {(None if renderer.shortlists(pscene, c)[0] is None else
-                     int(renderer.shortlists(pscene, c)[0].shape[-1])): c
-                    for c in cams}.values():
-        np.asarray(renderer.render(scene, cap_cam, seed=0).image[0, 0])
-
+    jax.block_until_ready(renderer.render(scene, static_cam, seed=0))
     rows = []
 
     def record(name, ts, **kw):
         row = {"config": f"{name} {width}x{height}/{spp}spp",
                "p50_ms": p50_ms(ts), **kw}
+        if rows:
+            row["overhead_pct"] = 100 * (row["p50_ms"] / rows[0]["p50_ms"] - 1)
         rows.append(row)
         print(json.dumps(row), flush=True)
-        return row
 
-    # -- static reference ---------------------------------------------------
-    np.asarray(renderer.render(scene, static_cam, seed=0).image[0, 0])
-    ts = []
-    for i in range(frames):
-        t0 = time.perf_counter()
-        fr = renderer.render(scene, static_cam, seed=i + 1)
-        np.asarray(fr.image[0, 0])
-        ts.append(time.perf_counter() - t0)
-    static = record("static", ts)
+    def loop(frame_cam, next_work=None, pipelined=False):
+        """Per-frame times; ``next_work(i)`` is frame i's host work."""
+        ts, work = [], None
+        for i in range(frames):
+            t0 = time.perf_counter()
+            if not pipelined and next_work is not None:
+                work = next_work(i)
+            fr = renderer.render(work if work is not None else scene,
+                                 frame_cam(i), seed=i + 1)
+            if pipelined and next_work is not None:
+                work = next_work(i)     # overlaps this frame's device work
+            jax.block_until_ready(fr)
+            ts.append(time.perf_counter() - t0)
+        return ts
 
-    # -- orbit, synced ------------------------------------------------------
-    renderer._sl_cache = None           # force per-frame misses from a cold start
-    ts = []
-    for i, cam in enumerate(cams):
-        renderer._sl_cache = None       # every frame pays the rebuild
-        t0 = time.perf_counter()
-        fr = renderer.render(scene, cam, seed=i + 1)
-        np.asarray(fr.image[0, 0])
-        ts.append(time.perf_counter() - t0)
-    record("orbit-synced", ts, n_capacities=len(caps),
-           overhead_pct=round(100 * (p50_ms(ts) / static["p50_ms"] - 1), 1))
+    record("static", loop(lambda i: static_cam))
+    record("orbit-synced", loop(lambda i: cams[i]))
 
-    # -- orbit, pipelined ---------------------------------------------------
-    renderer._sl_cache = None
-    renderer.shortlists(pscene, cams[0])
-    ts = []
-    for i, cam in enumerate(cams):
-        t0 = time.perf_counter()
-        fr = renderer.render(scene, cam, seed=i + 1)   # dispatch (cache hit)
-        if i + 1 < frames:
-            # next frame's host work overlaps this frame's device render
-            renderer._sl_cache = None
-            renderer.shortlists(pscene, cams[i + 1])
-        np.asarray(fr.image[0, 0])
-        ts.append(time.perf_counter() - t0)
-    record("orbit-pipelined", ts,
-           overhead_pct=round(100 * (p50_ms(ts) / static["p50_ms"] - 1), 1))
-
-    # -- per-frame sphere edit, synced (gizmo-drag analog) -------------------
     rng = np.random.default_rng(7)
 
     def apply_edit(i):
@@ -140,41 +99,22 @@ def bench(width=1920, height=1080, spp=16, bounces=4, frames=24, seed=42):
                                     float(rng.uniform(-8, 8))))
         return world.extract(with_bvh=False)
 
-    ts = []
-    for i in range(frames):
-        t0 = time.perf_counter()
-        sc = apply_edit(i)
-        fr = renderer.render(sc, static_cam, seed=i + 1)
-        np.asarray(fr.image[0, 0])
-        ts.append(time.perf_counter() - t0)
-    record("edit-synced", ts,
-           overhead_pct=round(100 * (p50_ms(ts) / static["p50_ms"] - 1), 1))
-
-    # -- per-frame sphere edit, pipelined ------------------------------------
-    sc = apply_edit(-1)
-    renderer.prepare(sc)
-    ts = []
-    for i in range(frames):
-        t0 = time.perf_counter()
-        fr = renderer.render(sc, static_cam, seed=i + 1)  # dispatch frame i
-        if i + 1 < frames:
-            sc = apply_edit(i)              # next frame's host work overlaps
-            ps = renderer.prepare(sc)
-            renderer.shortlists(ps, static_cam)
-        np.asarray(fr.image[0, 0])
-        ts.append(time.perf_counter() - t0)
-    record("edit-pipelined", ts,
-           overhead_pct=round(100 * (p50_ms(ts) / static["p50_ms"] - 1), 1))
-
+    record("edit-synced", loop(lambda i: static_cam, apply_edit))
+    record("edit-pipelined", loop(lambda i: static_cam, apply_edit,
+                                  pipelined=True))
     return rows
 
 
 def main():
-    import jax
+    from bevyray_tpu.utils.compile_cache import enable_compile_cache
+    from bevyray_tpu.utils.device import card_lines, device_record, require_gpus
 
+    devices = require_gpus(1)
+    enable_compile_cache()
+    print("\n".join(card_lines()), flush=True)
     rows = bench()
     rows += bench(width=1280, height=720, spp=4, frames=24)
-    print(json.dumps({"device": str(jax.devices()[0]), "rows": len(rows)}))
+    print(json.dumps({"device": device_record(devices), "rows": len(rows)}))
     return 0
 
 

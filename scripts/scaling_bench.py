@@ -1,26 +1,26 @@
-"""Multi-chip scaling harness — runs BOTH SPMD frame steps (XLA wavefront and
-the Pallas megakernel, the path one would actually deploy) over 1/2/4/8-device
-meshes and reports per-device ray balance and cross-mesh image equality.
+"""Multi-device structure check for the sharded XLA frame step
+(``parallel/sharding.py``) on a virtual CPU mesh of 1/2/4/8 devices.
 
-On this box no multi-chip hardware exists, so the harness provisions a virtual
-CPU mesh (the tests/conftest.py recipe) and validates the SCALING STRUCTURE:
-that each sharded program compiles and executes at every mesh shape, that every
-mesh produces the same image as the 1-device run (so scaling changes nothing
-but placement), and how the ray work splits per device (per-sp-shard traced
-segment counts — the megakernel shards pixel BLOCKS over sp, so imbalance =
-content imbalance between block ranges). On a real pod the same script (run
-under `jax.distributed`) times the scaling curve instead.
+It validates the SCALING STRUCTURE, not wall-clock: that the sharded program
+compiles and executes at every mesh shape, that every mesh produces the same
+image and the same traced-segment count as the 1-device run (so scaling changes
+nothing but placement). Timing across cards is ``chip_smoke.py --four-cards``.
 
-Prints one JSON line per mesh shape per path plus a summary line; with
-``--out FILE`` also writes the full record set as one JSON artifact
-(SCALING_r04.json in the repo root is the committed per-round capture).
+    python scripts/scaling_bench.py [--out FILE]
+
+When this process already holds a backend with the wrong device set, it re-runs
+itself in a child with ``JAX_PLATFORMS=cpu``, so the child never reserves memory
+on a card the parent holds.
 """
 
 import json
+import os
+import subprocess
 import sys
 
 import numpy as np
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _RECORDS: list = []
 
 
@@ -35,142 +35,67 @@ def _provision(n):
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_num_cpu_devices", n)
     except Exception:
-        pass
+        pass   # backend already initialized; the device check decides
     devs = jax.devices()
     return len(devs) >= n and devs[0].platform == "cpu"
 
 
+def run(n_max: int = 8, width=64, height=64, spp=8):
+    """Render on each mesh shape; returns True when all match 1 device."""
+    import jax
+
+    sys.path.insert(0, ROOT)
+    from bevyray_tpu import RenderConfig, rtiow
+    from bevyray_tpu.parallel.sharding import (default_mesh_shape, make_mesh,
+                                               render_frame_sharded)
+
+    world = rtiow.final_scene(seed=42, grid=3)
+    scene = world.extract(with_bvh=False)
+    cam = world.camera_state(aspect=width / height)
+    config = RenderConfig(width=width, height=height, samples_per_pixel=spp,
+                          bounces=4, level=3)
+    ok, ref_img, ref_rays = True, None, None
+    for n in (1, 2, 4, 8):
+        if n > n_max:
+            break
+        sp, dp, tp = default_mesh_shape(n)
+        frame = render_frame_sharded(make_mesh(sp, dp, tp), scene, cam, config,
+                                     frame_seed=7)
+        img = np.asarray(jax.block_until_ready(frame.image))
+        rays = float(frame.rays_traced)
+        if ref_img is None:
+            ref_img, ref_rays = img, rays
+        # dp splits each pixel's sample sum over devices (another summation
+        # order); the segment count is an integer-valued f32 sum, exact here.
+        same = bool(np.abs(img - ref_img).max() < 2e-6) and rays == ref_rays
+        ok &= same
+        _emit({"devices": n, "mesh": {"sp": sp, "dp": dp, "tp": tp},
+               "rays": int(rays), "matches_1dev": same})
+    _emit({"scaling_ok": ok, "note": "virtual CPU mesh — validates "
+           "compile/execute/equality per mesh shape, not wall-clock"})
+    return ok
+
+
 def main(n_max: int = 8, out_path=None):
     if not _provision(n_max):
-        import os
-        import subprocess
         if os.environ.get("_BEVYRAY_SCALING_CHILD"):   # one re-exec level only
             print("cannot provision a CPU mesh even in a clean subprocess",
                   file=sys.stderr)
             return 1
         proc = subprocess.run([sys.executable, __file__, *sys.argv[1:]],
-                              cwd=os.path.dirname(os.path.dirname(
-                                  os.path.abspath(__file__))),
-                              env={**os.environ,
+                              cwd=ROOT,
+                              env={**os.environ, "JAX_PLATFORMS": "cpu",
                                    "_BEVYRAY_SCALING_CHILD": "1"},
                               capture_output=True, text=True, timeout=2400)
         sys.stdout.write(proc.stdout)
         sys.stderr.write(proc.stderr[-1000:] if proc.returncode else "")
         return proc.returncode
-
-    import jax
-
-    sys.path.insert(0, ".")
-    from bevyray_tpu import RenderConfig, rtiow
-    from bevyray_tpu.parallel.sharding import (default_mesh_shape, make_mesh,
-                                               render_frame_sharded,
-                                               render_frame_sharded_pallas)
-
-    world = rtiow.final_scene(seed=42, grid=3)
-    scene = world.extract(with_bvh=False)
-    cam = world.camera_state(aspect=1.0)
-    config = RenderConfig(width=64, height=64, samples_per_pixel=8, bounces=4,
-                          level=3)
-
-    ok = True
-
-    # ---- XLA wavefront step: sp×dp×tp ------------------------------------
-    ref_img = None
-    for n in [1, 2, 4, 8]:
-        if n > n_max:
-            break
-        sp, dp, tp = default_mesh_shape(n)
-        mesh = make_mesh(sp, dp, tp)
-        frame = render_frame_sharded(mesh, scene, cam, config, frame_seed=7)
-        img = np.asarray(jax.block_until_ready(frame.image))
-        if ref_img is None:
-            ref_img = img
-        same = bool(np.abs(img - ref_img).max() < 2e-6)
-        ok &= same
-        _emit({
-            "path": "xla", "devices": n, "mesh": {"sp": sp, "dp": dp, "tp": tp},
-            "rays": int(float(frame.rays_traced)),
-            "matches_1dev": same,
-        })
-
-    # ---- Pallas megakernel step: sp×dp (the deployed fast path) ----------
-    # The kernel tiles 64×64 pixel BLOCKS, so sp sharding needs a multi-block
-    # frame (a 64×64 frame is ONE block: every extra sp shard would render
-    # padding, and the padded shortlist grid can even flip the phase-split
-    # gate vs the 1-device build — bit-equality only holds on equal grids).
-    pconfig = RenderConfig(width=256, height=128, samples_per_pixel=4,
-                           bounces=4, level=3)   # 4×2 = 8 blocks
-    ref_img = None
-    ref_rays = None
-    for n in [1, 2, 4, 8]:
-        if n > n_max:
-            break
-        dp = 2 if n >= 4 else 1          # exercise the sample axis too
-        sp = n // dp
-        mesh = make_mesh(sp, dp, 1)
-        frame = render_frame_sharded_pallas(mesh, scene, cam, pconfig,
-                                            frame_seed=7)
-        img = np.asarray(jax.block_until_ready(frame.image))
-        if ref_img is None:
-            ref_img = img
-            ref_rays = float(frame.rays_traced)
-        # dp=1 meshes only move blocks between devices — per-pixel sums are
-        # computed in identical order, so images must match the 1-device run
-        # BIT-FOR-BIT. dp>1 splits the per-pixel sample sum across devices
-        # (different fp summation order), so those compare at float tolerance.
-        if dp == 1:
-            same = bool(np.array_equal(img, ref_img))
-        else:
-            same = bool(np.abs(img - ref_img).max() < 2e-6)
-        ok &= same
-        # Traced-segment counts are integer-valued f32 sums (exact far below
-        # 2^24): placement must not change the total.
-        ok &= float(frame.rays_traced) == ref_rays
-        balance = _sp_ray_balance(scene, cam, pconfig, sp, frame_seed=7)
-        _emit({
-            "path": "pallas", "devices": n, "mesh": {"sp": sp, "dp": dp},
-            "rays": int(float(frame.rays_traced)),
-            ("bitmatches_1dev" if dp == 1 else "matches_1dev"): same,
-            "per_sp_shard_rays": balance,
-            "balance_max_over_min": (round(max(balance) / max(min(balance), 1),
-                                           3) if balance else 1.0),
-        })
-
-    _emit({"scaling_ok": ok, "note": "virtual CPU mesh — validates "
-           "compile/execute/equality per mesh shape, not wall-clock"})
+    ok = run(n_max)
     if out_path:
         with open(out_path, "w") as f:
             json.dump({"probe_script": "scripts/scaling_bench.py",
                        "records": _RECORDS}, f, indent=1)
     return 0 if ok else 1
-
-
-def _sp_ray_balance(scene, cam, config, sp, frame_seed):
-    """Traced-segment count per sp shard (the megakernel shards pixel BLOCKS
-    over sp): run the kernel per block range exactly as each device would and
-    read its segment counter. Exact on the CPU mesh (exact-RNG draws are keyed
-    by pixel/sample, not placement)."""
-    import jax.numpy as jnp
-
-    from bevyray_tpu.kernels.pallas.megakernel import (block_grid,
-                                                       jitted_prepare,
-                                                       render_tiles)
-    nbx, nby = block_grid(config)
-    n_blocks = nbx * nby
-    n_pad = -(-n_blocks // sp) * sp
-    blocks_local = n_pad // sp
-    # Prepare with the SAME (cand_size, grouping) as the sharded run next to
-    # which this balance is reported — defaults would measure a differently-
-    # ordered table if pconfig ever sets non-default values.
-    pscene = jitted_prepare(config.pallas_cand_size, config.pallas_grouping)(scene)
-    out = []
-    for i in range(sp):
-        *_, segs = render_tiles(pscene, cam, config,
-                                jnp.uint32(frame_seed),
-                                block_offset=jnp.uint32(i * blocks_local),
-                                n_blocks_local=blocks_local, normalize=False)
-        out.append(int(float(segs)))
-    return out
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Adaptive sampling (engine/adaptive.py + the megakernel's per-lane sample
+"""Adaptive sampling (engine/adaptive.py + the XLA step's per-pixel sample
 targets): tolerance 0 must reproduce uniform progressive accumulation
 draw-for-draw; a positive tolerance must stop converged pixels while keeping
 the estimate unbiased."""
@@ -19,7 +19,7 @@ def test_tolerance_zero_matches_uniform_progressive():
     scene, cam = _scene()
     cfg = RenderConfig(width=64, height=64, samples_per_pixel=2, bounces=3,
                        level=3)
-    prog = ProgressiveRenderer(cfg, backend="pallas")
+    prog = ProgressiveRenderer(cfg)
     adap = AdaptiveRenderer(cfg, tolerance=0.0)
     for i in range(3):
         f_ref = prog.step(scene, cam, seed=i)
@@ -63,14 +63,27 @@ def test_adaptive_stops_converged_pixels_and_stays_unbiased():
 
 
 def test_spp_map_roundtrip():
-    from bevyray_tpu.kernels.pallas.megakernel import (shuffle_blocks,
-                                                       unshuffle_blocks)
-    cfg = RenderConfig(width=100, height=72, samples_per_pixel=1, bounces=1,
+    """The pass's per-pixel sample targets are laid out row-major: exactly the
+    pixels still above tolerance (an asymmetric pattern here) gain samples and
+    change, every other pixel keeps its sums bit for bit."""
+    import jax.numpy as jnp
+
+    scene, cam = _scene()
+    cfg = RenderConfig(width=20, height=12, samples_per_pixel=2, bounces=2,
                        level=3)
-    vals = np.arange(100 * 72, dtype=np.float32)
-    blocked = shuffle_blocks(vals, cfg, fill=-1)
-    back = np.asarray(unshuffle_blocks(np.asarray(blocked).reshape(-1), cfg))
-    np.testing.assert_array_equal(back, vals)
+    adap = AdaptiveRenderer(cfg, tolerance=0.5, reprobe_every=0)
+    adap.step(scene, cam, seed=0)
+    pattern = np.zeros((12, 20), bool)
+    pattern[1, 3:9] = True
+    pattern[7:10, 15] = True
+    adap.film = adap.film._replace(err=jnp.asarray(
+        np.where(pattern.ravel(), 1.0, 0.0).astype(np.float32)))
+    before = np.asarray(adap.film.color_sum.x).reshape(12, 20).copy()
+    adap.step(scene, cam, seed=1)
+    np.testing.assert_array_equal(adap.samples_map(), 2.0 + 2.0 * pattern)
+    after = np.asarray(adap.film.color_sum.x).reshape(12, 20)
+    np.testing.assert_array_equal(after[~pattern], before[~pattern])
+    assert (after[pattern] != before[pattern]).mean() > 0.5
 
 
 def test_cli_adaptive_accumulate(tmp_path):
@@ -78,7 +91,7 @@ def test_cli_adaptive_accumulate(tmp_path):
     out = tmp_path / "a.png"
     rc = main(["accumulate", "--scene", "material", "--width", "48",
                "--height", "48", "--spp", "2", "--passes", "3",
-               "--backend", "pallas", "--adaptive-tolerance", "0.05",
+               "--adaptive-tolerance", "0.05",
                "--out", str(out)])
     assert rc == 0 and out.exists()
 
@@ -109,9 +122,8 @@ def test_adaptive_checkpoint_resume(tmp_path):
 
 
 def test_camera_change_resets_film_and_shortlists():
-    # Camera-keyed shortlists + a viewpoint-specific film: moving the camera
-    # must reset both (an earlier bug reused cam A's frustum shortlists for
-    # cam B, silently culling visible spheres).
+    # The film is viewpoint-specific: moving the camera must reset it, not
+    # mix two viewpoints' samples.
     from bevyray_tpu.scene.components import (PerspectiveProjection,
                                               RaytracedCamera, Transform)
     world = rtiow.material_test_scene()

@@ -3,8 +3,9 @@
 Both implementations consume identical RNG draws (the slot contract), so they
 compute the same estimate; disagreement is limited to libm differences (~1e-5 per
 op), which can chaotically flip a hit/branch decision on a measure-zero set of rays.
-Comparisons therefore use robust metrics: mean error tight, plus a small allowance
-of outlier pixels.
+Comparisons therefore use robust metrics (``bevyray_tpu.testing.parity``, shared
+with the on-card run of ``chip_smoke.py``): mean error tight, plus a small
+allowance of outlier pixels.
 """
 
 import numpy as np
@@ -13,35 +14,9 @@ import pytest
 from bevyray_tpu import RenderConfig, Renderer, rtiow
 from bevyray_tpu.testing.oracle import (oracle_inputs_from_world, render_oracle,
                                         render_oracle_fast)
-
-
-def _render_pair(world, width, height, spp, bounces, level, seed, **oracle_kw):
-    cfg = RenderConfig(width=width, height=height, samples_per_pixel=spp,
-                       bounces=bounces, level=level,
-                       defocus=oracle_kw.get("defocus", False),
-                       diffuse_sampling=oracle_kw.get("diffuse_sampling",
-                                                      "reference"))
-    r = Renderer(cfg)
-    scene = world.extract(with_bvh=False)
-    cam = world.camera_state(aspect=width / height)
-    frame = r.render(scene, cam, seed=seed)
-    got = np.asarray(frame.image)
-    got_depth = np.asarray(frame.rt_depth)
-
-    centers, radii, mats, camera = oracle_inputs_from_world(world)
-    camera["aspect"] = width / height
-    want, want_depth = render_oracle_fast(centers, radii, mats, camera, width,
-                                          height, spp, bounces, level, seed,
-                                          **oracle_kw)
-    return got, got_depth, want, want_depth
-
-
-def _assert_images_match(got, want, mean_tol=2e-3, outlier_tol=5e-3,
-                         max_outlier_frac=0.01):
-    err = np.abs(got - want)
-    assert err.mean() < mean_tol, f"mean err {err.mean()}"
-    frac = (err.max(axis=-1) > outlier_tol).mean()
-    assert frac < max_outlier_frac, f"outlier fraction {frac}"
+from bevyray_tpu.testing.parity import (GOLDEN_CASES, GoldenCase,
+                                        assert_images_match, oracle_world,
+                                        render_world, run_case)
 
 
 def test_fast_oracle_is_the_scalar_oracle():
@@ -59,10 +34,8 @@ def test_fast_oracle_is_the_scalar_oracle():
 @pytest.mark.parametrize("level", [3, 2])
 def test_simple_scene_matches_oracle(level):
     """BASELINE config 1: Lambertian spheres + ground."""
-    world = rtiow.simple_scene()
-    got, got_depth, want, want_depth = _render_pair(
-        world, 96, 96, spp=4, bounces=8, level=level, seed=7)
-    _assert_images_match(got, want)
+    m = run_case(GOLDEN_CASES[f"simple-L{level}"])
+    got_depth, want_depth = m["got_depth"], m["want_depth"]
     # Depth: compare where both agree it's a hit (miss fallback is huge).
     both_hit = (want_depth < 900) & (got_depth < 900)
     assert both_hit.mean() > 0.5
@@ -71,47 +44,25 @@ def test_simple_scene_matches_oracle(level):
 
 def test_material_scene_matches_oracle():
     """BASELINE config 2: metal fuzz + dielectric with Schlick."""
-    world = rtiow.material_test_scene()
-    got, _, want, _ = _render_pair(world, 96, 96, spp=4, bounces=8, level=3, seed=3)
-    _assert_images_match(got, want, mean_tol=4e-3, max_outlier_frac=0.02)
+    run_case(GOLDEN_CASES["material"])
 
 
 def test_final_scene_small_matches_oracle():
     """A shrunk RTiOW final scene (grid=2 → ~30 spheres), all material kinds."""
-    world = rtiow.final_scene(seed=5, grid=2)
-    got, _, want, _ = _render_pair(world, 80, 80, spp=4, bounces=4, level=3, seed=11)
-    _assert_images_match(got, want, mean_tol=4e-3, max_outlier_frac=0.02)
+    run_case(GOLDEN_CASES["final-grid2"])
 
 
 def test_defocus_emissive_combo_matches_oracle():
     """Two extensions combined (defocus blur + emissive lighting) against the
-    oracle — coverage the per-pixel oracle could not afford (VERDICT r1 #6)."""
-    from bevyray_tpu import (RaytracedCamera, RaytracedSphere, Raytracing,
-                             StandardMaterial, Transform)
-    from bevyray_tpu.scene.world import World
-
-    w = World()
-    w.set_camera(Transform.from_xyz(0, 1.0, 5).looking_at((0, 0.5, 0)),
-                 camera=RaytracedCamera(level=Raytracing.PURE, aperture=0.25,
-                                        focus_distance=5.0))
-    w.spawn_sphere(Transform.from_xyz(0, -1000, 0), RaytracedSphere(1000.0),
-                   StandardMaterial(base_color=(0.5, 0.5, 0.5)))
-    w.spawn_sphere(Transform.from_xyz(0, 0.5, 0), RaytracedSphere(0.5),
-                   StandardMaterial(base_color=(0.0, 0.0, 0.0),
-                                    emissive=(4.0, 2.0, 1.0)))
-    w.spawn_sphere(Transform.from_xyz(-1.5, 0.5, -2.0), RaytracedSphere(0.5),
-                   StandardMaterial(base_color=(0.2, 0.4, 0.8)))
-    got, _, want, _ = _render_pair(w, 64, 64, spp=4, bounces=4, level=3, seed=9,
-                                   defocus=True)
-    _assert_images_match(got, want, mean_tol=4e-3, max_outlier_frac=0.02)
+    oracle."""
+    run_case(GOLDEN_CASES["defocus-emissive"])
 
 
 def test_cosine_sampling_matches_oracle():
     """The cosine-weighted diffuse extension draw-for-draw vs the oracle."""
-    world = rtiow.material_test_scene()
-    got, _, want, _ = _render_pair(world, 64, 64, spp=4, bounces=6, level=3,
-                                   seed=13, diffuse_sampling="cosine")
-    _assert_images_match(got, want, mean_tol=4e-3, max_outlier_frac=0.02)
+    run_case(GoldenCase("cosine", rtiow.material_test_scene, 64, 64, 4, 6, 3,
+                        13, mean_tol=4e-3, max_outlier_frac=0.02,
+                        diffuse_sampling="cosine"))
 
 
 def test_skip_level_passthrough():
@@ -127,33 +78,7 @@ def test_skip_level_passthrough():
 def test_mesh_scene_matches_oracle():
     """Triangle meshes against the independent oracle (oracle's serial
     control-flow + its own Möller–Trumbore)."""
-    from bevyray_tpu import (RaytracedCamera, RaytracedSphere, Raytracing,
-                             StandardMaterial, Transform, cube_mesh)
-    from bevyray_tpu.scene.world import World
-
-    w = World()
-    w.set_camera(Transform.from_xyz(0, 0.8, 5).looking_at((0, 0.5, 0)),
-                 camera=RaytracedCamera(level=Raytracing.PURE))
-    w.spawn_sphere(Transform.from_xyz(0, -1000, 0), RaytracedSphere(1000.0),
-                   StandardMaterial(base_color=(0.5, 0.5, 0.5)))
-    w.spawn_sphere(Transform.from_xyz(-1.3, 0.5, 0), RaytracedSphere(0.5),
-                   StandardMaterial(base_color=(0.8, 0.2, 0.2)))
-    w.spawn_mesh(Transform.from_xyz(0.9, 0.5, 0), cube_mesh(1.0),
-                 StandardMaterial(base_color=(0.2, 0.5, 0.9), metallic=1.0,
-                                  perceptual_roughness=0.1))
-    cfg = RenderConfig(width=40, height=40, samples_per_pixel=2, bounces=4,
-                       level=3)
-    frame = Renderer(cfg).render(w.extract(with_bvh=False),
-                                 w.camera_state(aspect=1.0), seed=6)
-    got = np.asarray(frame.image)
-
-    centers, radii, mats, camera = oracle_inputs_from_world(w)
-    mesh_data = w.extract_meshes_host(first_material_id=len(radii))
-    va, vb, vc, tri_mids, tri_mats = mesh_data
-    mats_full = np.concatenate([mats, tri_mats], axis=0)
-    want, _ = render_oracle(centers, radii, mats_full, camera, 40, 40, 2, 4, 3, 6,
-                            triangles=(va, vb, vc, tri_mids))
-    _assert_images_match(got, want, mean_tol=4e-3, max_outlier_frac=0.02)
+    run_case(GOLDEN_CASES["cube-mesh"])
 
 
 def test_hollow_glass_matches_oracle():
@@ -184,22 +109,18 @@ def test_hollow_glass_matches_oracle():
         cfg = RenderConfig(width=32, height=32, samples_per_pixel=2, bounces=6,
                            level=3, intersect_backend=backend)
         frame = Renderer(cfg).render(w.extract(with_bvh=with_bvh), cam, seed=4)
-        _assert_images_match(np.asarray(frame.image), want, mean_tol=4e-3,
+        assert_images_match(np.asarray(frame.image), want, mean_tol=4e-3,
                              max_outlier_frac=0.02)
 
 
 def test_kitchen_sink_hybrid_all_features_vs_oracle():
     """Everything at once — hybrid level 2 with the analytic raster cube,
     a traced triangle mesh, an emissive sphere, hollow glass, thin-lens
-    defocus, and cosine diffuse sampling — XLA vs the vectorized oracle, and
-    the megakernel (phase-split) vs XLA. Pins the feature INTERACTIONS no
-    single-feature golden covers."""
+    defocus, and cosine diffuse sampling — XLA vs the vectorized oracle.
+    Pins the feature INTERACTIONS no single-feature golden covers."""
     from bevyray_tpu import (RaytracedCamera, RaytracedSphere, Raytracing,
                              StandardMaterial, Transform, cube_mesh)
-    from bevyray_tpu.engine.pallas_renderer import PallasRenderer
-    from bevyray_tpu.engine.raster import raster_layer
     from bevyray_tpu.scene.world import World
-    from bevyray_tpu.testing.oracle import render_oracle_fast
 
     w = World()
     w.set_camera(Transform.from_xyz(0, 1.0, 5).looking_at((0, 0.5, 0)),
@@ -222,30 +143,8 @@ def test_kitchen_sink_hybrid_all_features_vs_oracle():
     w.spawn_raster_mesh(Transform.from_xyz(0.0, 0.5, -0.4), cube_mesh(1.0),
                         StandardMaterial(base_color=(0.8, 0.7, 0.6)))
 
-    W_, H_ = 48, 48
-    cfg = RenderConfig(width=W_, height=H_, samples_per_pixel=3, bounces=4,
+    cfg = RenderConfig(width=48, height=48, samples_per_pixel=3, bounces=4,
                        level=2, defocus=True, diffuse_sampling="cosine")
-    cam = w.camera_state(aspect=1.0)
-    rc, rd = raster_layer(w, cam, cfg)
-    scene = w.extract(with_bvh=False)
-
-    got_xla = np.asarray(Renderer(cfg).render(
-        scene, cam, seed=21, raster_color=rc, raster_depth=rd).image)
-    got_pls = np.asarray(PallasRenderer(cfg, exact_rng=True).render(
-        scene, cam, seed=21, raster_color=rc, raster_depth=rd).image)
-
-    centers, radii, mats, camera = oracle_inputs_from_world(w)
-    camera["aspect"] = 1.0
-    va, vb, vc, tri_mids, tri_mats = w.extract_meshes_host(
-        first_material_id=len(radii))
-    mats_full = np.concatenate([mats, tri_mats], axis=0)
-    raster_color = np.stack([np.asarray(v).reshape(H_, W_) for v in
-                             (rc.x, rc.y, rc.z)], axis=-1)
-    raster_depth = np.asarray(rd).reshape(H_, W_)
-    want, _ = render_oracle_fast(
-        centers, radii, mats_full, camera, W_, H_, 3, 4, 2, 21,
-        raster_color=raster_color, raster_depth=raster_depth, defocus=True,
-        diffuse_sampling="cosine", triangles=(va, vb, vc, tri_mids))
-
-    _assert_images_match(got_xla, want, mean_tol=4e-3, max_outlier_frac=0.02)
-    np.testing.assert_allclose(got_pls, got_xla, atol=5e-5)
+    got, _ = render_world(w, cfg, seed=21)
+    want, _ = oracle_world(w, cfg, seed=21)
+    assert_images_match(got, want, mean_tol=4e-3, max_outlier_frac=0.02)

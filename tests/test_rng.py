@@ -1,6 +1,5 @@
 """RNG parity tests: PCG hash bit-exactness and stream/ball statistics."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -107,40 +106,3 @@ def test_unit_ball_jax_matches_numpy():
     # XLA and NumPy use different libm implementations for sin/cos/log, so the
     # agreement is ~1e-5 (float32), not bit-exact.
     np.testing.assert_allclose(p_jx, p_np, atol=2e-4)
-
-
-def test_fast_ball_zphi_statistics():
-    """The hw-PRNG z/phi ball (megakernel._fast_ball_zphi, HW_DRAWS_ZPHI) must
-    be uniform in the unit ball like the exact-path sampler: Archimedes z/phi
-    direction + cube-root radius. Runs the kernel helper through an
-    interpret-mode pallas_call (pltpu.bitcast only lowers inside pallas)."""
-    from jax.experimental import pallas as pl
-
-    from bevyray_tpu.kernels.pallas import megakernel as mk
-
-    def kern(uz, uphi, ur, ox, oy, oz):
-        b = mk._fast_ball_zphi(uz[...], uphi[...], ur[...])
-        ox[...] = b.x
-        oy[...] = b.y
-        oz[...] = b.z
-
-    nprng = np.random.default_rng(3)
-    shape = (1024, 128)
-    uz, uphi, ur = (jnp.asarray(nprng.random(shape), jnp.float32)
-                    for _ in range(3))
-    out = jax.ShapeDtypeStruct(shape, jnp.float32)
-    x, y, z = pl.pallas_call(kern, out_shape=(out, out, out),
-                             interpret=True)(uz, uphi, ur)
-    p = np.stack([np.asarray(x).ravel(), np.asarray(y).ravel(),
-                  np.asarray(z).ravel()], -1)
-    r = np.linalg.norm(p, axis=-1)
-    # fast_pow2/log2 radius approximation overshoots 1 by <1e-3 at u→1.
-    assert r.max() <= 1.0 + 2e-3
-    assert abs(r.mean() - 0.75) < 5e-3
-    assert np.abs(p.mean(0)).max() < 5e-3
-    assert abs(np.median(r) - 0.5 ** (1 / 3)) < 5e-3
-    # The direction (p/r) must be uniform on the sphere: each squared
-    # component averages 1/3 — this is where the old Box-Muller route is only
-    # approximate and the z/phi construction is exact.
-    d = p / r[:, None]
-    assert np.abs((d ** 2).mean(0) - 1.0 / 3.0).max() < 5e-3

@@ -45,66 +45,6 @@ def test_sharded_hybrid_level(world_and_scene):
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
-@pytest.mark.parametrize("mesh_shape", [(8, 1, 1), (4, 2, 1), (1, 4, 1)])
-def test_sharded_megakernel_matches_single_device(world_and_scene, mesh_shape):
-    """The fused Pallas kernel inside shard_map (sp pixel rows, dp samples) must
-    reproduce the single-device megakernel exactly (exact-RNG interpret mode)."""
-    from bevyray_tpu.engine.pallas_renderer import PallasRenderer
-    from bevyray_tpu.parallel.sharding import render_frame_sharded_pallas
-
-    _, scene, cam = world_and_scene
-    sp, dp, tp = mesh_shape
-    mesh = make_mesh(sp, dp, tp)
-    cfg = RenderConfig(width=32, height=32, samples_per_pixel=4, bounces=3, level=3)
-    want = np.asarray(PallasRenderer(cfg).render(scene, cam, seed=5).image)
-    got = np.asarray(render_frame_sharded_pallas(mesh, scene, cam, cfg,
-                                                 frame_seed=5).image)
-    np.testing.assert_allclose(got, want, atol=1e-6)
-
-
-def test_sharded_indivisible_fuse_segments_exact():
-    """Regression (ADVICE round 4): with fused-grid padding on the sharded
-    path (blocks_local % fuse != 0), a padded tail half's global coordinates
-    alias the NEXT shard's in-image blocks — its lanes must be masked inactive
-    or their traced segments inflate the fused instance's row-0 segment count,
-    which survives the [:n_tiles] crop and overcounts rays_traced after the
-    psum. 128×192 → 6 blocks, sp=2 → 3 local, fuse 2 → each shard pads a
-    tail half aliasing the other shard's blocks."""
-    from bevyray_tpu.engine.pallas_renderer import PallasRenderer
-    from bevyray_tpu.kernels.pallas import megakernel as mk
-    from bevyray_tpu.parallel.sharding import render_frame_sharded_pallas
-
-    world = rtiow.material_test_scene()
-    scene = world.extract(with_bvh=False)
-    cam = world.camera_state(aspect=128.0 / 192.0)
-    cfg = RenderConfig(width=128, height=192, samples_per_pixel=2, bounces=2,
-                       level=3, sphere_chunk=8)
-    old = mk.PHASE_FUSE
-    mk.PHASE_FUSE = 2
-    try:
-        want = PallasRenderer(cfg).render(scene, cam, seed=7)
-        got = render_frame_sharded_pallas(make_mesh(2, 1, 1), scene, cam, cfg,
-                                          frame_seed=7)
-    finally:
-        mk.PHASE_FUSE = old
-    np.testing.assert_allclose(np.asarray(got.image), np.asarray(want.image),
-                               atol=1e-6)
-    assert float(got.rays_traced) == float(want.rays_traced), (
-        f"sharded rays_traced {float(got.rays_traced)} != single-device "
-        f"{float(want.rays_traced)} (padded-half segments leaked)")
-
-
-def test_sharded_megakernel_rejects_tp():
-    from bevyray_tpu.parallel.sharding import render_frame_sharded_pallas
-
-    world = rtiow.material_test_scene()
-    scene = world.extract(with_bvh=False)
-    cam = world.camera_state(aspect=1.0)
-    cfg = RenderConfig(width=32, height=32, samples_per_pixel=2, bounces=2, level=3)
-    with pytest.raises(ValueError, match="sp/dp"):
-        render_frame_sharded_pallas(make_mesh(2, 2, 2), scene, cam, cfg, 1)
-
-
 def test_default_mesh_shape():
     assert default_mesh_shape(8) == (2, 2, 2)
     assert default_mesh_shape(4) == (2, 2, 1)
@@ -114,45 +54,13 @@ def test_default_mesh_shape():
         assert sp * dp * tp == n
 
 
-def test_sharded_shortlist_cache_lru(world_and_scene, monkeypatch):
-    """Alternating two cameras through the sharded megakernel must hit the
-    shortlist cache both ways (the old single-slot cache rebuilt every frame)."""
-    from bevyray_tpu.kernels.pallas import primary
-    from bevyray_tpu.parallel import sharding
-    from bevyray_tpu.parallel.sharding import render_frame_sharded_pallas
-    from bevyray_tpu.scene.components import Transform
-
-    world, scene, cam_a = world_and_scene
-    world.set_camera(Transform.from_xyz(2.0, 1.5, 6.0).looking_at((0, 0.5, 0)))
-    cam_b = world.camera_state(aspect=1.0)
-
-    builds = []
-    real = primary.shortlists_for
-
-    def spy(*a, **kw):
-        builds.append(1)
-        return real(*a, **kw)
-
-    monkeypatch.setattr(primary, "shortlists_for", spy)
-    monkeypatch.setattr(sharding, "shortlists_for", spy, raising=False)
-    sharding._SHARDED_SL_CACHE.clear()
-
-    cfg = RenderConfig(width=32, height=32, samples_per_pixel=2, bounces=2,
-                       level=3)
-    mesh = make_mesh(2, 2, 1)
-    for seed, cam in enumerate([cam_a, cam_b, cam_a, cam_b, cam_a]):
-        render_frame_sharded_pallas(mesh, scene, cam, cfg, frame_seed=seed)
-    assert len(builds) == 2, f"expected one build per camera, got {len(builds)}"
-
-
 def test_sharded_per_pixel_raster_inputs(world_and_scene):
     """Per-pixel raster color/depth arrays (the hybrid G-buffer case) must work
-    through both sharded steps — composite runs outside shard_map, so the
+    through the sharded step — composite runs outside shard_map, so the
     raster layer needs no replicated spec against sharded pixels."""
     import jax.numpy as jnp
 
     from bevyray_tpu.core.vec import Vec3
-    from bevyray_tpu.parallel.sharding import render_frame_sharded_pallas
 
     _, scene, cam = world_and_scene
     cfg = RenderConfig(width=32, height=32, samples_per_pixel=2, bounces=3,
@@ -172,6 +80,56 @@ def test_sharded_per_pixel_raster_inputs(world_and_scene):
                                    raster_color=rc, raster_depth=rd)
     np.testing.assert_allclose(np.asarray(got_xla.image), want, atol=1e-4)
 
-    got_pl = render_frame_sharded_pallas(make_mesh(4, 2, 1), scene, cam, cfg, 5,
-                                         raster_color=rc, raster_depth=rd)
-    np.testing.assert_allclose(np.asarray(got_pl.image), want, atol=1e-4)
+
+
+@pytest.mark.parametrize("mesh_shape", [(4, 1, 1), (2, 2, 1), (1, 4, 1),
+                                        (1, 2, 2)])
+def test_four_device_meshes_match_single_device(mesh_shape):
+    """The meshes of ``chip_smoke.py --four-cards`` on a 4-device sub-mesh:
+    each equal to single-device ``Renderer`` (the final scene's 512-entry
+    table splits evenly over tp)."""
+    world = rtiow.final_scene(seed=42, grid=3)
+    scene = world.extract(with_bvh=False)
+    cam = world.camera_state(aspect=40 / 24)
+    cfg = RenderConfig(width=40, height=24, samples_per_pixel=4, bounces=3,
+                       level=3)
+    want = Renderer(cfg).render(scene, cam, seed=7)
+    got = render_frame_sharded(make_mesh(*mesh_shape), scene, cam, cfg, 7)
+    np.testing.assert_allclose(np.asarray(got.image), np.asarray(want.image),
+                               atol=1e-5)
+    assert float(got.rays_traced) == float(want.rays_traced)
+    assert len(got.image.sharding.device_set) == 4
+
+
+def test_sharded_sp_hybrid_raster_layer():
+    """Level 2 with the final scene's raster cube, pixel rows over 4 devices."""
+    from bevyray_tpu.engine.raster import raster_layer
+
+    world = rtiow.final_scene(seed=5, grid=2)
+    scene = world.extract(with_bvh=False)
+    cam = world.camera_state(aspect=1.0)
+    cfg = RenderConfig(width=32, height=32, samples_per_pixel=2, bounces=3,
+                       level=2)
+    rc, rd = raster_layer(world, cam, cfg)
+    want = Renderer(cfg).render(scene, cam, seed=3, raster_color=rc,
+                                raster_depth=rd)
+    got = render_frame_sharded(make_mesh(4, 1, 1), scene, cam, cfg, 3,
+                               raster_color=rc, raster_depth=rd)
+    np.testing.assert_allclose(np.asarray(got.image), np.asarray(want.image),
+                               atol=1e-5)
+
+
+def test_sharded_sp_triangle_scene():
+    """A traced triangle mesh beside spheres, pixel rows over 4 devices."""
+    from bevyray_tpu.testing.parity import cube_mesh_world
+
+    world = cube_mesh_world()
+    scene = world.extract(with_bvh=False)
+    cam = world.camera_state(aspect=1.0)
+    cfg = RenderConfig(width=32, height=32, samples_per_pixel=2, bounces=3,
+                       level=3)
+    want = Renderer(cfg).render(scene, cam, seed=6)
+    got = render_frame_sharded(make_mesh(4, 1, 1), scene, cam, cfg, 6)
+    np.testing.assert_allclose(np.asarray(got.image), np.asarray(want.image),
+                               atol=1e-5)
+    assert float(got.rays_traced) == float(want.rays_traced)

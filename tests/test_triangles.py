@@ -88,24 +88,3 @@ def test_metallic_cube_reflects():
     assert np.isfinite(img).all()
     # The front face mirrors whatever is behind the camera (sky) — bright-ish.
     assert img[18, 16].mean() > 0.3
-
-
-def test_pallas_mesh_scene_matches_xla():
-    """The Pallas megakernel traces triangles too (scalar MT loop + combined
-    attribute table); it must match the XLA path on a mixed scene."""
-    from bevyray_tpu.engine.pallas_renderer import PallasRenderer
-
-    w = _camera_world()
-    w.spawn_sphere(Transform.from_xyz(-1.5, 0.5, 0), RaytracedSphere(0.5),
-                   StandardMaterial(base_color=(0, 0, 1)))
-    w.spawn_mesh(Transform.from_xyz(1.2, 0.5, 0), cube_mesh(1.0),
-                 StandardMaterial(base_color=(1, 1, 0)))
-    cfg = RenderConfig(width=32, height=32, samples_per_pixel=2, bounces=3, level=3)
-    scene = w.extract(with_bvh=False)
-    cam = w.camera_state(aspect=1.0)
-    want = Renderer(cfg).render(scene, cam, seed=4)
-    got = PallasRenderer(cfg).render(scene, cam, seed=4)
-    np.testing.assert_allclose(np.asarray(got.image), np.asarray(want.image),
-                               atol=5e-4)
-    np.testing.assert_allclose(np.asarray(got.rt_depth),
-                               np.asarray(want.rt_depth), atol=1e-2)

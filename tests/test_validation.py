@@ -17,8 +17,6 @@ from bevyray_tpu import RenderConfig
     (dict(width=64, height=64, intersect_backend="gpu"), "intersect_backend"),
     (dict(width=64, height=64, diffuse_sampling="uniform"),
      "diffuse_sampling"),
-    (dict(width=64, height=64, pallas_intersect="bvh"), "pallas_intersect"),
-    (dict(width=64, height=64, pallas_primary="on"), "pallas_primary"),
 ])
 def test_bad_config_raises(kwargs, match):
     with pytest.raises(ValueError, match=match):
@@ -67,19 +65,3 @@ def test_up_axis_camera_raises():
         (0.0, 5.0, 0.0))
     with pytest.raises(ValueError, match="degenerate"):
         w.camera_state(aspect=1.0)
-
-
-def test_progressive_forced_split_raises_like_renderer():
-    from bevyray_tpu import rtiow
-    from bevyray_tpu.engine.film import ProgressiveRenderer
-    from bevyray_tpu.kernels.pallas.megakernel import MAX_SPLIT_SPP
-
-    world = rtiow.material_test_scene()
-    scene = world.extract(with_bvh=False)
-    cam = world.camera_state(aspect=1.0)
-    cfg = RenderConfig(width=64, height=64,
-                       samples_per_pixel=MAX_SPLIT_SPP + 1, bounces=1,
-                       level=3, pallas_primary="split")
-    prog = ProgressiveRenderer(cfg, backend="pallas")
-    with pytest.raises(ValueError, match="pallas_primary"):
-        prog.step(scene, cam, seed=0)
